@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch / CUDA port (``metamaps_tpu_torch``) on one
-NVIDIA card: builds the L2 sweep kernel from ``metamaps_tpu_torch/csrc``,
-holds it against its plain PyTorch version, then drives the port's main
-path -- ``mapDirectly`` followed by ``classify`` through the port's CLI --
-on a mock-community-scale synthetic database, and checks the outputs.
+NVIDIA card: builds the L2 sweep kernels from ``metamaps_tpu_torch/csrc``,
+holds each against its plain PyTorch version, drives the port's main path
+-- ``mapDirectly`` followed by ``classify`` (EM rounds on the card) through
+the port's CLI -- on a mock-community-scale synthetic database, checks the
+outputs, then drives the sweep bench, the path of the other sweep kernels.
 
     python3 chip_smoke.py                  # 36 genomes x 3 Mbp, 4096 reads
     python3 chip_smoke.py --reads 512 --genome-len 1000000
@@ -11,20 +12,29 @@ on a mock-community-scale synthetic database, and checks the outputs.
 Phases (each prints its wall seconds; any failure exits non-zero):
 
 1. environment: torch / CUDA versions and the card; no card, no run;
-2. build: nvcc for sm_90a into build/metamaps_tpu_torch/;
+2. build: one nvcc -c per kernel source, all at once, for sm_90a, linked
+   into one library under build/metamaps_tpu_torch/;
 3. kernel vs plain on the card, bit for bit: the real L2 event streams of
-   the first read chunk, and random contract-conforming streams with plane
-   widths below and above 48 KB of shared memory; CUDA-event timings;
+   the first read chunk (through all three sweep kernels), and random
+   contract-conforming streams with plane widths below and above 48 KB of
+   shared memory; CUDA-event timings;
 4. main path: synthetic DB (write_synth_db_dir) + ONT-like reads, then the
-   port's ``mapDirectly`` (torch engine on CUDA) and ``classify``;
-5. checks: the kernel ran on the main path, oracle fallbacks <= 1% of
-   mappable reads, a 64-read sample gives byte-identical mapping lines on
-   the device engine and the serial oracle, .meta counts add up, >= 90% of
-   reads mapped, EM outputs written;
+   port's ``mapDirectly`` (torch engine on CUDA) and ``classify`` (EM rounds
+   in float64 on CUDA);
+5. checks: the sweep kernel ran on the main path, oracle fallbacks <= 1%
+   of mappable reads, a 64-read sample gives byte-identical mapping lines
+   on the device engine and the serial oracle, .meta counts add up, >= 90%
+   of reads mapped; ``classify --emBackend numpy`` on a copy of the
+   mappings writes the same bytes in all seven .EM* files, two EM rounds on
+   the card give the same bits, and a round's seconds on the card and on
+   the host, and the same at 1M and 12M lines (profiling/em_bench.py);
 6. breakdown: a fresh engine on the uploaded tables maps the reads once
    more with a synchronise after each phase, and prints each phase's
    seconds;
-7. summary: reads/s, classify seconds, peak device memory, then the card
+7. sweep_variants: the sweep bench (profiling/sweep_bench.py) drives the
+   row-block, eager and ablation kernels at the JAX engine's slab shapes;
+   each is then held bit for bit against its plain version;
+8. summary: reads/s, classify seconds, peak device memory, then the card
    line, the kernel JSON line and the final JSON line.
 """
 from __future__ import annotations
@@ -42,18 +52,23 @@ from concurrent.futures import ProcessPoolExecutor
 import numpy as np
 import torch
 
-from metamaps_tpu.io.fasta import read_sequences
-from metamaps_tpu.io.mappings import MappingLine, read_meta
-from metamaps_tpu.io.native import winnow_native
-from metamaps_tpu.sim.synth_db import ont_read, write_synth_db_dir
+from metamaps_tpu_torch.cli import _add_sketch_args, _sketch_params
 from metamaps_tpu_torch.cli import main as cli_main
-from metamaps_tpu_torch.engine import mapper_oracle
+from metamaps_tpu_torch.engine import em, mapper_oracle
 from metamaps_tpu_torch.engine.index import SketchShard, build_shards
 from metamaps_tpu_torch.engine.mapper_torch import TorchMapperEngine
-from metamaps_tpu_torch.ops import l2_sweep
+from metamaps_tpu_torch.io.fasta import read_sequences
+from metamaps_tpu_torch.io.mappings import MappingLine, read_meta
+from metamaps_tpu_torch.io.native import winnow_native
+from metamaps_tpu_torch.ops import l2_sweep, l2_sweep_parts
+from metamaps_tpu_torch.profiling import em_bench, sweep_bench
+from metamaps_tpu_torch.sim.synth_db import ont_read, write_synth_db_dir
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SAMPLE = 64  # reads checked line by line against the serial oracle
+EM_FILES = (".EM", ".EM.WIMP", ".EM.reads2Taxon", ".EM.reads2Taxon.krona",
+            ".EM.contigCoverage", ".EM.evidenceUnknownSpecies",
+            ".EM.lengthAndIdentitiesPerMappingUnit")
 
 # the serial oracle takes seconds per read at this database size, so the
 # sample is mapped by a pool of spawned workers that load the shard from disk
@@ -92,41 +107,43 @@ class Phase:
         return False
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean milliseconds per call on the card (CUDA events, after one
-    warm-up call)."""
-    fn()
+def compare(label, fn, ref, arrs, *width):
+    """A kernel wrapper ``fn`` against its plain version ``ref`` on the same
+    CUDA tensors; returns the max abs difference. Exact int32 arithmetic:
+    any difference fails."""
+    got = fn(*arrs, *width)
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def compare_sweep(label, arrs, sp, dev, time_it=False):
-    """Kernel vs plain version on the card; returns (max_abs_err, ms,
-    plain_ms). Exact int32 arithmetic: any difference fails."""
-    arrs = [a.to(dev).contiguous() for a in arrs]
-    got = l2_sweep.l2_event_sweep(*arrs, sp)
-    torch.cuda.synchronize()
-    want = l2_sweep.l2_event_sweep_ref(*arrs, sp)
+    want = ref(*arrs, *width)
     torch.cuda.synchronize()
     err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max()) \
         if got.numel() else 0
     n, e2 = arrs[1].shape
-    ms = plain_ms = None
-    if time_it:
-        ms = cuda_ms(lambda: l2_sweep.l2_event_sweep(*arrs, sp), 5)
-        plain_ms = cuda_ms(lambda: l2_sweep.l2_event_sweep_ref(*arrs, sp), 1)
-    log(f"sweep {label}: N={n} E2={e2} sp={sp} max_abs_err={err}"
-        + (f" kernel {ms:.3f} ms plain {plain_ms:.3f} ms" if time_it else ""))
+    log(f"{fn.__name__} vs plain, {label}: N={n} E2={e2} "
+        f"width={list(width)} max_abs_err={err}")
     if err != 0 or not torch.equal(got, want):
-        raise AssertionError(f"sweep kernel differs from plain on {label}")
-    return err, ms, plain_ms
+        raise AssertionError(f"{fn.__name__} differs from plain on {label}")
+    return err
+
+
+def kernel_entry(name, source, replaces, arrs, width, clock_mhz, err, fn,
+                 ref, swept=None, outputs=1, **extra):
+    """One row of the kernels line: the kernel's and the plain version's
+    CUDA-event times on ``arrs`` and the bound on the same inputs, from the
+    events and plane width this data needs (``swept`` and ``outputs`` as in
+    ``sweep_bench.sweep_bound``)."""
+    ms = sweep_bench.time_ms(lambda: fn(*arrs, *width), arrs[0].device, 5)
+    plain_ms = sweep_bench.time_ms(lambda: ref(*arrs, *width),
+                                   arrs[0].device, 1)
+    host = [a.cpu().numpy() for a in arrs]
+    bound_ms, bound_by, counts = sweep_bench.sweep_bound(
+        host[0], host[1], host[2], clock_mhz, swept=swept, outputs=outputs)
+    log(f"{name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by}; {counts})")
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                shape=[int(arrs[1].shape[0]), int(arrs[1].shape[1]),
+                       width[0]], **extra)
 
 
 def write_fastq(path, reads):
@@ -146,6 +163,8 @@ def main(argv=None) -> int:
     ap.add_argument("--workdir", default=os.path.join(ROOT, "build", "chip_smoke"))
     args = ap.parse_args(argv)
     times: dict = {}
+    counters = (l2_sweep.l2_event_sweep_batch, l2_sweep.l2_event_sweep_rb,
+                l2_sweep.l2_event_sweep, l2_sweep_parts.l2_sweep_parts)
 
     # ---- 1. environment --------------------------------------------------
     with Phase("environment", times):
@@ -154,12 +173,17 @@ def main(argv=None) -> int:
         if not torch.cuda.is_available():
             raise RuntimeError("torch.cuda.is_available() is false: this "
                                "smoke test runs on an NVIDIA card only")
-        card = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"],
-            capture_output=True, text=True, check=True, timeout=60,
-        ).stdout.strip().splitlines()[0]
-        log(f"card: {card}; torch sees {torch.cuda.device_count()} device(s): "
+
+        def smi(query):
+            return subprocess.run(
+                ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+                capture_output=True, text=True, check=True, timeout=60,
+            ).stdout.strip().splitlines()[0]
+
+        card = smi("name,power.limit")
+        clock_mhz = float(smi("clocks.max.sm").split()[0])
+        log(f"card: {card}; max SM clock {clock_mhz} MHz; torch sees "
+            f"{torch.cuda.device_count()} device(s): "
             f"{torch.cuda.get_device_name(0)}")
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -168,7 +192,7 @@ def main(argv=None) -> int:
     with Phase("build", times):
         l2_sweep.load_library()
         info = l2_sweep.build_info
-        log(f"kernel library {info.get('library')} built in "
+        log(f"kernel library {info['library']} built in "
             f"{info.get('seconds', 0.0):.2f} s")
         for line in info.get("report", "").splitlines():
             log(f"  {line}")
@@ -200,8 +224,6 @@ def main(argv=None) -> int:
                 "--query", fq, "--output", out, "--all",
                 "--mapping-engine", "torch"]
     with Phase("index", times):
-        from metamaps_tpu.cli import _add_sketch_args, _sketch_params
-
         p = argparse.ArgumentParser()
         _add_sketch_args(p)
         params = _sketch_params(p.parse_known_args(argv_map[1:])[0])
@@ -224,30 +246,37 @@ def main(argv=None) -> int:
         b0 = engine._bucket_of(len(reads[0]))
         chunk = [r for r in reads if engine._bucket_of(len(r)) == b0]
         setups = engine.l2_slab_setups(chunk[: engine.CHUNK])
-        st, sp = setups[0]
-        err, ms, plain_ms = compare_sweep(
-            "main-path slab", (st.meta, st.qrank, st.signinq, st.rows), sp,
-            dev, time_it=True)
-        errs = [err]
-        for st_i, sp_i in setups[1:]:
-            errs.append(compare_sweep(
-                "main-path slab", (st_i.meta, st_i.qrank, st_i.signinq,
-                                   st_i.rows), sp_i, dev)[0])
+        ref = l2_sweep.l2_event_sweep_ref
+        errs = []
+        for i, (st, sp) in enumerate(setups):
+            arrs = [t.contiguous() for t in (st.meta, st.qrank, st.signinq,
+                                             st.rows)]
+            errs.append(compare(f"main-path slab {i}",
+                                l2_sweep.l2_event_sweep_batch, ref, arrs, sp))
+            if i == 0:
+                slab0 = (arrs, sp)
+                # the same function through the two other sweep kernels
+                compare("main-path slab 0", l2_sweep.l2_event_sweep_rb, ref,
+                        arrs, sp)
+                compare("main-path slab 0", l2_sweep.l2_event_sweep, ref,
+                        arrs, -(-sp // 1024) * 1024)
         for sp_r, e2 in ((1152, 900), (10240, 400)):  # 9 KB and 80 KB planes
-            arrs = l2_sweep.random_event_streams(
-                np.random.default_rng(sp_r), 257, e2, sp_r - 1)
-            errs.append(compare_sweep(
-                f"random sp={sp_r}", [torch.from_numpy(a) for a in arrs],
-                sp_r, dev)[0])
-        kernel_row = {"name": "l2_event_sweep", "route": "cuda",
-                      "source": "metamaps_tpu_torch/csrc/l2_sweep.cu",
-                      "replaces": "metamaps_tpu/ops/l2_pallas.py:116",
-                      "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
-                      "shape": [int(st.rows.shape[0]), int(st.rows.shape[1]), sp]}
+            arrs = [torch.from_numpy(a).to(dev) for a in
+                    l2_sweep.random_event_streams(
+                        np.random.default_rng(sp_r), 257, e2, sp_r - 1)]
+            errs.append(compare(f"random sp={sp_r}",
+                                l2_sweep.l2_event_sweep_batch, ref, arrs,
+                                sp_r))
+        arrs, sp = slab0
+        batch_row = kernel_entry(
+            "l2_event_sweep_batch", "metamaps_tpu_torch/csrc/l2_sweep.cu",
+            "metamaps_tpu/ops/l2_pallas.py:116", arrs, (sp,), clock_mhz,
+            max(errs), l2_sweep.l2_event_sweep_batch, ref)
 
     # ---- 4. main path -----------------------------------------------------
     torch.cuda.reset_peak_memory_stats(dev)
-    l2_sweep.l2_event_sweep.launches = 0
+    for fn in counters:
+        fn.launches = 0
     engine_stats: dict = {}
     with Phase("mapDirectly", times):
         if cli_main(argv_map, engine_stats=engine_stats) != 0:
@@ -256,7 +285,7 @@ def main(argv=None) -> int:
     with Phase("classify", times):
         if cli_main(["classify", "--DB", db, "--mappings", out]) != 0:
             raise AssertionError("classify failed")
-    launches = l2_sweep.l2_event_sweep.launches
+    launches = l2_sweep.l2_event_sweep_batch.launches
     peak = torch.cuda.max_memory_allocated(dev)
 
     # ---- 5. checks --------------------------------------------------------
@@ -277,9 +306,6 @@ def main(argv=None) -> int:
             raise AssertionError(".meta TotalReads differs from the input")
         if meta["ReadsMapped"] < 0.9 * len(reads):
             raise AssertionError(f"only {meta['ReadsMapped']} reads mapped")
-        for suffix in (".EM.WIMP", ".EM.reads2Taxon"):
-            if os.path.getsize(out + suffix) == 0:
-                raise AssertionError(f"{suffix} is empty")
         sample = reads[:SAMPLE]
         dev_maps = engine.map_reads(sample)
         shard_path = os.path.join(args.workdir, "shard.npz")
@@ -310,6 +336,52 @@ def main(argv=None) -> int:
         log(f"{SAMPLE}-read sample: {n_lines} mapping lines identical on "
             f"the device engine and the serial oracle ({workers} workers)")
 
+    # ---- the EM on the card against the host EM ----------------------------
+    with Phase("em_checks", times):
+        host = os.path.join(args.workdir, "host")
+        os.makedirs(host, exist_ok=True)
+        for name in os.listdir(args.workdir):
+            if name.startswith("out.meta") or name == "out":
+                shutil.copy(os.path.join(args.workdir, name), host)
+        host_out = os.path.join(host, "out")
+        t0 = time.perf_counter()
+        if cli_main(["classify", "--DB", db, "--mappings", host_out,
+                     "--emBackend", "numpy"]) != 0:
+            raise AssertionError("classify --emBackend numpy failed")
+        classify_host_s = time.perf_counter() - t0
+        for suffix in EM_FILES:
+            with open(out + suffix, "rb") as a, open(host_out + suffix, "rb") as b:
+                card_bytes, host_bytes = a.read(), b.read()
+            if not card_bytes or card_bytes != host_bytes:
+                raise AssertionError(f"{suffix}: EM on the card and on the "
+                                     "host wrote different bytes")
+        table = em.load_mapping_table(
+            out, em.load_relevant_taxon_info(db, set()))
+        step = em.make_em_iterate_torch(table, dev)
+        f0 = np.full(len(table.taxon_list), 1.0 / len(table.taxon_list))
+        (fa, lla), (fb, llb) = step(f0), step(f0)
+        if fa.tobytes() != fb.tobytes() or lla != llb:
+            raise AssertionError("two EM rounds on the card differ in bits")
+        fh, llh = em.em_iterate(table, f0)
+        t0 = time.perf_counter()
+        for _ in range(5):
+            step(f0)
+        round_card_ms = (time.perf_counter() - t0) * 200
+        t0 = time.perf_counter()
+        for _ in range(5):
+            em.em_iterate(table, f0)
+        round_host_ms = (time.perf_counter() - t0) * 200
+        em_stats = dict(
+            lines=len(table.lines), reads=len(table.read_ids),
+            taxa=len(table.taxon_list), round_card_ms=round_card_ms,
+            round_host_ms=round_host_ms, classify_host_s=classify_host_s,
+            ll_rel_diff=abs(lla - llh) / abs(llh),
+            f_max_abs_diff=float(np.abs(fa - fh).max()),
+            # the round at the JAX bench's table sizes (1M and 12M lines)
+            scale=em_bench.run(dev, reps=3, log=lambda m: log(f"em_bench {m}")))
+        log("EM: 7 .EM* files identical on the card and the host; two "
+            "rounds on the card identical in bits; " + json.dumps(em_stats))
+
     # ---- where the mapping time goes: a fresh engine on the uploaded
     # tables, as mapDirectly builds one, with a synchronise after each phase
     with Phase("breakdown", times):
@@ -320,25 +392,86 @@ def main(argv=None) -> int:
         breakdown = dict(fresh.stats["phase_s"],
                          total=time.perf_counter() - t0)
         log("mapping phases (s, synchronised): " + json.dumps(breakdown))
+    del engine, fresh
 
-    # ---- 6. summary -------------------------------------------------------
+    # ---- 7. the sweep bench: the path of the other sweep kernels ----------
+    for fn in counters:
+        fn.launches = 0
+    with Phase("sweep_variants", times):
+        bench = sweep_bench.run(dev, reps=10, log=lambda m: log(f"bench {m}"))
+        bench_launches = {fn.__name__: fn.launches for fn in counters}
+        log(f"sweep bench launches: {bench_launches}")
+        for fn in counters[1:]:
+            if fn.launches <= 0:
+                raise AssertionError(f"{fn.__name__} never ran in the bench")
+        by_name = {row["scenario"]: row for row in bench["scenarios"]}
+        full, sparse = by_name["full"], by_name["sparse"]
+        sp = full["sp"]
+        errs = {}
+        for fn, width in ((l2_sweep.l2_event_sweep_rb, sp),
+                          (l2_sweep.l2_event_sweep, full["s_pad"])):
+            errs[fn.__name__] = max(
+                compare(f"bench {row['scenario']}", fn, ref, row["inputs"],
+                        width) for row in (full, sparse))
+        variant_rows = [
+            kernel_entry("l2_event_sweep_rb",
+                         "metamaps_tpu_torch/csrc/l2_sweep_rb.cu",
+                         "metamaps_tpu/ops/l2_pallas.py:233", full["inputs"],
+                         (sp,), clock_mhz, errs["l2_event_sweep_rb"],
+                         l2_sweep.l2_event_sweep_rb, ref, scenario="full"),
+            kernel_entry("l2_event_sweep",
+                         "metamaps_tpu_torch/csrc/l2_sweep_eager.cu",
+                         "metamaps_tpu/ops/l2_pallas.py:41", full["inputs"],
+                         (full["s_pad"],), clock_mhz,
+                         errs["l2_event_sweep"], l2_sweep.l2_event_sweep, ref,
+                         scenario="full"),
+        ]
+        parts_fn = l2_sweep_parts.l2_sweep_parts
+        parts_ref = l2_sweep_parts.l2_sweep_parts_ref
+        for row in bench["parts"]:
+            arrs, mode, sp_p = row["inputs"], row["mode"], row["sp"]
+            got = parts_fn(*arrs, sp_p, mode)
+            want = parts_ref(*arrs, sp_p, mode)
+            torch.cuda.synchronize()
+            err = max(int((g.long() - w.long()).abs().max())
+                      for g, w in zip(got, want))
+            log(f"l2_sweep_parts vs plain, mode {mode}: max_abs_err={err} "
+                "(output and fold state)")
+            if err or not all(map(torch.equal, got, want)):
+                raise AssertionError(f"l2_sweep_parts differs from plain "
+                                     f"in mode {mode}")
+        variant_rows.append(kernel_entry(
+            "l2_sweep_parts", "metamaps_tpu_torch/csrc/l2_sweep_parts.cu",
+            "profiling/pallas_sweep_parts.py:30", arrs, (sp_p, "cmsf"),
+            clock_mhz, err, parts_fn, parts_ref,
+            swept=arrs[1].shape[1] // l2_sweep_parts.TPU_BLK
+            * l2_sweep_parts.TPU_BLK, outputs=2, mode="cmsf",
+            ms_by_mode={r["mode"]: r["ms"] for r in bench["parts"]}))
+        for row in variant_rows:
+            row["launches"] = bench_launches[row["name"]]
+        batch_row["launches"] = launches
+        scenario_ms = {row["scenario"]: row["ms"] for row in bench["scenarios"]}
+        log("sweep bench ms by scenario: " + json.dumps(scenario_ms))
+
+    # ---- 8. summary -------------------------------------------------------
     map_s = engine_stats["map_s"]
     summary = {
         "reads": len(reads), "reads_mappable": mappable,
         "reads_mapped": meta["ReadsMapped"],
         "mapping_reads_per_s": mappable / map_s,
         "mapDirectly_s": times["mapDirectly"], "mapping_s": map_s,
-        "classify_s": times["classify"], "index_minimizers": shard.n_minimizers,
+        "classify_s": times["classify"], "em": em_stats,
+        "index_minimizers": shard.n_minimizers,
         "peak_device_bytes": peak, "oracle_fallbacks": fallbacks,
         "l2_candidates": engine_stats["l2_candidates"],
         "sweep_launches": launches, "phase_s": times,
-        "mapping_phase_s": breakdown,
+        "mapping_phase_s": breakdown, "sweep_bench_ms": scenario_ms,
+        "sm_clock_max_mhz": clock_mhz,
     }
     log("summary " + json.dumps(summary))
-    kernel_row["launches"] = launches
     shutil.rmtree(args.workdir, ignore_errors=True)
     print(card)
-    print(json.dumps({"kernels": [kernel_row]}))
+    print(json.dumps({"kernels": [batch_row] + variant_rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,10 +1,9 @@
 """Command-line interface of the port.
 
-Counterpart: ``metamaps_tpu/cli.py``. ``mapDirectly`` (single shard or the
-memory-bounded shard loop) and ``index`` run through the port;
-``classify``, ``classifyU`` and every other host-only subcommand are handed
-to ``metamaps_tpu.cli.main`` unchanged (``classify`` runs the float64 host
-EM there). ``mapAgainstIndex`` is not ported yet.
+Counterpart: ``metamaps_tpu/cli.py``. ``index``, ``mapDirectly`` (single
+shard or the memory-bounded shard loop) and ``classify`` (EM rounds in
+float64 on ``--device``) run through the port. Every other subcommand of
+the JAX package's CLI prints "not ported yet" and returns 2.
 
     python -m metamaps_tpu_torch mapDirectly --reference DB/DB.fa \\
         --query reads.fastq --output out --all
@@ -13,14 +12,70 @@ EM there). ``mapAgainstIndex`` is not ported yet.
 from __future__ import annotations
 
 import argparse
+import math
 import sys
 
-from metamaps_tpu.cli import _add_sketch_args, _sketch_params
-
+from .device import require_cuda
+from .engine.em import EM_BACKENDS, do_em
 from .engine.mapwrap import ENGINES
+from .io.fasta import total_file_size
+from .params import Parameters
 
-PORT_COMMANDS = ("index", "mapDirectly")
-NOT_PORTED = ("mapAgainstIndex",)
+NOT_PORTED = (
+    "mapAgainstIndex", "classifyU", "experiments", "synthDB", "simulate",
+    "buildTruth", "truthDataset", "extractReads", "firstQuartileScore",
+    "shortenContigIDs", "splitEggNog", "addTaxonIDToFasta", "buildDB",
+    "annotate", "validateDB", "DBinfo", "selfSimilarity", "geneLevelAnalysis",
+    "filterWIMP", "convertDB", "compareMappings", "benchmarkInference",
+    "evaluateExternal", "plotIdentities", "downloadRefSeq",
+)
+
+
+def _add_sketch_args(p: argparse.ArgumentParser):
+    # short aliases mirror the reference (parseCmdArgs.hpp:58-79)
+    p.add_argument("--reference", "-r", required=True, help="reference FASTA (DB.fa)")
+    p.add_argument("--kmer", "-k", type=int, default=None, help="k-mer size (default 16)")
+    p.add_argument("--pval", "-p", type=float, default=None, help="p-value cutoff (default 1e-3)")
+    p.add_argument("--minReadLen", "-m", type=int, default=None, help="minimum read length (default 1000)")
+    p.add_argument("--perc_identity", "--pi", dest="pi", type=float, default=None,
+                   help="identity cutoff %% (default 80)")
+    p.add_argument("--window", "-w", type=int, default=None, help="window size (default: from p-value)")
+    p.add_argument("--maxmemory", "--mm", type=int, default=None, help="memory budget in GB")
+
+
+def _add_query_args(p: argparse.ArgumentParser):
+    p.add_argument("--query", "-q", required=True, help="reads FASTA/FASTQ (comma-separated list allowed)")
+    p.add_argument("--output", "-o", required=True, help="output prefix (comma-separated list allowed)")
+    p.add_argument("--all", action="store_true", help="report all mappings, not just the top band")
+    p.add_argument("--threads", "-t", type=int, default=1,
+                   help="host-side winnowing threads for the index build")
+    p.add_argument("--mapping-engine", choices=ENGINES, default="torch",
+                   help="batched torch engine (default) or serial host "
+                   "engine (oracle)")
+
+
+def _add_device_arg(p: argparse.ArgumentParser, what: str):
+    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                   help=f"device of the {what}; it raises when CUDA is "
+                   "absent unless cpu is given")
+
+
+def _sketch_params(args) -> Parameters:
+    p = Parameters()
+    p.ref_sequences = [args.reference]
+    p.reference_size = total_file_size(p.ref_sequences)
+    p.alphabet_size = 4
+    p.maximum_memory = int(math.pow(1024, 3) * args.maxmemory) if args.maxmemory else 0
+    p.kmer_size = args.kmer if args.kmer is not None else 16
+    p.p_value = args.pval if args.pval is not None else 1e-3
+    p.min_read_length = args.minReadLen if args.minReadLen is not None else 1000
+    p.percentage_identity = args.pi if args.pi is not None else 80.0
+    if args.window is not None:
+        p.window_size = args.window
+        p.derive_window_size(window_size_given=True)
+    else:
+        p.derive_window_size(window_size_given=False)
+    return p
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -33,20 +88,18 @@ def _parser() -> argparse.ArgumentParser:
 
     p_map = sub.add_parser("mapDirectly", help="map reads (index built on the fly)")
     _add_sketch_args(p_map)
-    p_map.add_argument("--query", "-q", required=True,
-                       help="reads FASTA/FASTQ (comma-separated list allowed)")
-    p_map.add_argument("--output", "-o", required=True,
-                       help="output prefix (comma-separated list allowed)")
-    p_map.add_argument("--all", action="store_true",
-                       help="report all mappings, not just the top band")
-    p_map.add_argument("--threads", "-t", type=int, default=1,
-                       help="host-side winnowing threads for the index build")
-    p_map.add_argument("--mapping-engine", choices=ENGINES, default="torch",
-                       help="batched torch engine (default) or serial host "
-                       "engine (oracle)")
-    p_map.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
-                       help="device of the torch engine; it raises when CUDA "
-                       "is absent unless cpu is given")
+    _add_query_args(p_map)
+    _add_device_arg(p_map, "torch engine")
+
+    p_c = sub.add_parser("classify", help="EM composition estimation + per-read taxa")
+    p_c.add_argument("--DB", required=True, help="database directory")
+    p_c.add_argument("--mappings", required=True, help="mappings file from mapDirectly")
+    p_c.add_argument("--minreads", type=int, default=10000)
+    p_c.add_argument("--threads", "-t", type=int, default=1)
+    p_c.add_argument("--emBackend", choices=EM_BACKENDS, default="torch",
+                     help="EM round backend: torch = float64 rounds on "
+                     "--device (default), numpy = host float64 (parity path)")
+    _add_device_arg(p_c, "EM rounds")
     return parser
 
 
@@ -55,15 +108,25 @@ def main(argv=None, engine_stats: dict = None) -> int:
     mapping engine's counters (reads, oracle fallbacks, L2 candidates)."""
     argv = list(sys.argv[1:] if argv is None else argv)
     if argv and argv[0] in NOT_PORTED:
-        print(f"metamaps_tpu_torch: {argv[0]} is not ported yet; use "
-              f"python -m metamaps_tpu.cli {argv[0]}", file=sys.stderr)
+        print(f"metamaps_tpu_torch: {argv[0]} is not ported yet",
+              file=sys.stderr)
         return 2
-    if not argv or argv[0] not in PORT_COMMANDS:
-        from metamaps_tpu.cli import main as reference_main
-
-        return reference_main(argv)
 
     args = _parser().parse_args(argv)
+    if args.command == "classify":
+        if args.emBackend == "torch":
+            require_cuda(args.device)
+        params = Parameters()
+        params.db = args.DB
+        params.mappings_for_classification = args.mappings
+        params.minimum_reads_for_u = args.minreads
+        params.threads = args.threads
+        # comma-separated mappings lists, as in the reference
+        # (mash_map.cpp:311-316)
+        for mf in args.mappings.split(","):
+            do_em(params, mf, em_backend=args.emBackend, device=args.device)
+        return 0
+
     params = _sketch_params(args)
     if args.command == "index":
         from .engine.index import create_index

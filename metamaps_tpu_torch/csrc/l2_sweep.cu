@@ -34,21 +34,12 @@
 // each). Making it fast (incremental shared counts instead of a full
 // recount, a warp per candidate for small sp) is later work.
 #include <climits>
-#include <cuda_runtime.h>
+
+#include "l2_sweep_common.cuh"
 
 namespace {
 
-__device__ __forceinline__ void fold(int shared, int seg_a, int seg_b,
-                                     int& best, int& first, int& last) {
-  if (seg_a > seg_b) return;
-  if (shared > best) {
-    best = shared;
-    first = seg_a;
-    last = seg_b;
-  } else if (shared == best && best > 0) {
-    last = seg_b;
-  }
-}
+using l2sweep::fold;
 
 __global__ void l2_sweep_kernel(const int* __restrict__ meta,
                                 const int* __restrict__ qrank,
@@ -66,9 +57,6 @@ __global__ void l2_sweep_kernel(const int* __restrict__ meta,
 
   const int cand = blockIdx.x;
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int nwarps = (nthreads + 31) >> 5;
   const int s = meta[4 * cand + 0];
   const int row_lo = meta[4 * cand + 1];
   const int row_hi = meta[4 * cand + 2];
@@ -115,17 +103,8 @@ __global__ void l2_sweep_kernel(const int* __restrict__ meta,
         }
         cnt += (m_plane[j] > 0) && (j + c < s);
       }
-      for (int off = 16; off > 0; off >>= 1) {
-        cnt += __shfl_down_sync(0xffffffffu, cnt, off);
-      }
-      int* red_buf = red + ((t0 + t) & 1) * 32;
-      if (lane == 0) red_buf[warp] = cnt;
-      __syncthreads();
-      if (tid == 0) {
-        int total = 0;
-        for (int w = 0; w < nwarps; ++w) total += red_buf[w];
-        shared = total;
-      }
+      const int total = l2sweep::block_sum(cnt, red + ((t0 + t) & 1) * 32);
+      if (tid == 0) shared = total;
     }
   }
   if (tid == 0) {
@@ -137,36 +116,29 @@ __global__ void l2_sweep_kernel(const int* __restrict__ meta,
   }
 }
 
-int threads_for(int sp) { return sp <= 1024 ? 128 : 256; }
-
 }  // namespace
 
 extern "C" {
 
 // Dynamic shared memory of one block, in bytes.
-long long l2_sweep_smem_bytes(int sp) {
-  return (2LL * sp + 3LL * threads_for(sp) + 64) * (long long)sizeof(int);
-}
+long long l2_sweep_smem_bytes(int sp) { return l2sweep::block_smem_bytes(sp); }
 
 // Launches on `stream` without synchronising; returns cudaGetLastError().
 int l2_sweep_launch(const void* meta, const void* qrank, const void* signinq,
                     const void* rows, void* out, int n, int e2, int sp,
                     void* stream) {
   if (n <= 0) return 0;
-  const int threads = threads_for(sp);
   const long long smem = l2_sweep_smem_bytes(sp);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        l2_sweep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  l2_sweep_kernel<<<n, threads, (size_t)smem, (cudaStream_t)stream>>>(
+  const int err = l2sweep::allow_smem((const void*)l2_sweep_kernel, smem);
+  if (err != 0) return err;
+  l2_sweep_kernel<<<n, l2sweep::block_threads(sp), (size_t)smem,
+                    (cudaStream_t)stream>>>(
       (const int*)meta, (const int*)qrank, (const int*)signinq,
       (const int*)rows, (int*)out, e2, sp);
   return (int)cudaGetLastError();
 }
 
+// The message of a CUDA error code returned by any launch of this library.
 const char* l2_sweep_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }

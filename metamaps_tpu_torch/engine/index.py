@@ -29,7 +29,7 @@ from typing import Callable, List, Tuple
 
 import numpy as np
 
-from metamaps_tpu.io.fasta import read_sequences
+from metamaps_tpu_torch.io.fasta import read_sequences
 
 from ..ops.winnow import winnow_fast
 
@@ -372,7 +372,7 @@ def create_index(params, prefix: str, maximum_memory: int = 0):
     with open(prefix + ".index", "w") as f:
         f.write("0\n")
 
-    from metamaps_tpu.io.mappings import write_parameters_file
+    from metamaps_tpu_torch.io.mappings import write_parameters_file
 
     write_parameters_file(prefix, params)
 

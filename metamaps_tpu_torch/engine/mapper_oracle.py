@@ -29,7 +29,7 @@ from typing import List
 
 import numpy as np
 
-from metamaps_tpu import stats
+from metamaps_tpu_torch import stats
 
 from ..ops.winnow import winnow_np
 

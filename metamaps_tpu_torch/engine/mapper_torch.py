@@ -26,7 +26,7 @@ from typing import Dict, List, Sequence
 import numpy as np
 import torch
 
-from metamaps_tpu import stats
+from metamaps_tpu_torch import stats
 
 from ..device import require_cuda
 from ..ops.l1 import L1Regions, l1_regions, minhits_table

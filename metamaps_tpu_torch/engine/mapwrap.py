@@ -18,16 +18,16 @@ from typing import List
 
 import numpy as np
 
-from metamaps_tpu import stats
-from metamaps_tpu.io.fasta import read_sequences
-from metamaps_tpu.io.mappings import (
+from metamaps_tpu_torch import stats
+from metamaps_tpu_torch.io.fasta import read_sequences
+from metamaps_tpu_torch.io.mappings import (
     MappingLine,
     fmt_g,
     write_meta,
     write_parameters_file,
     write_unmapped_lengths,
 )
-from metamaps_tpu.params import Parameters
+from metamaps_tpu_torch.params import Parameters
 
 from . import mapper_oracle
 from .index import SketchShard, build_shards

@@ -23,7 +23,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from metamaps_tpu import stats
+from metamaps_tpu_torch import stats
 
 from .tables import DeviceTables
 

@@ -12,7 +12,7 @@ from __future__ import annotations
 import torch
 
 from .l2_setup import L2Setup, l2_setup
-from .l2_sweep import l2_event_sweep
+from .l2_sweep import l2_event_sweep_batch
 from .tables import I32_MAX, DeviceTables
 
 
@@ -91,6 +91,6 @@ def l2_gather(tables: DeviceTables, q_key, q_strand, sketch_size, read_lens,
     ss = sketch_size[rows_c]
     st = l2_setup(tables, qk, ss, read_lens[rows_c], c_seq, c_start, c_end,
                   k, w, range_max, sketch_cols)
-    sweep = l2_event_sweep(st.meta, st.qrank, st.signinq, st.rows,
-                           round_up(sketch_cols + 1, 128))
+    sweep = l2_event_sweep_batch(st.meta, st.qrank, st.signinq, st.rows,
+                                 round_up(sketch_cols + 1, 128))
     return l2_finish(st, sweep, qk, qs, ss, sketch_cols)

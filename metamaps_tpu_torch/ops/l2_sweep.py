@@ -1,14 +1,24 @@
-"""The L2 event sweep: a hand-written CUDA kernel and its plain version.
+"""The L2 event sweep: hand-written CUDA kernels and their plain version.
 
-Counterpart: ``l2_event_sweep_batch`` / ``_batch_sweep_kernel``,
-``metamaps_tpu/ops/l2_pallas.py:385`` / ``:116``. The kernel source,
-``metamaps_tpu_torch/csrc/l2_sweep.cu``, states the contract and design.
+Three kernels compute one function, each the counterpart of one Pallas
+kernel in ``metamaps_tpu/ops/l2_pallas.py``; their sources under
+``metamaps_tpu_torch/csrc/`` state the contract and design:
 
-:func:`l2_event_sweep` takes the plain version, :func:`l2_event_sweep_ref`,
-only for CPU tensors; for CUDA tensors it launches the kernel or raises.
-The kernel is compiled with ``nvcc`` for ``sm_90a`` into a shared library
-with a plain C entry point (loaded with ctypes) at first use, under
-``build/metamaps_tpu_torch/`` beside the package.
+- :func:`l2_event_sweep_batch` (``csrc/l2_sweep.cu``): ``l2_event_sweep_batch``
+  / ``_batch_sweep_kernel``, the mapping path's sweep; one thread block per
+  candidate;
+- :func:`l2_event_sweep_rb` (``csrc/l2_sweep_rb.cu``): ``l2_event_sweep_rb``
+  / ``_rb_sweep_kernel``; one warp per candidate, 8 to a block;
+- :func:`l2_event_sweep` (``csrc/l2_sweep_eager.cu``): ``l2_event_sweep`` /
+  ``_sweep_kernel``, which scores each segment eagerly after its event.
+
+Each wrapper takes the plain version, :func:`l2_event_sweep_ref`, only for
+CPU tensors; for CUDA tensors it launches its kernel or raises, and counts
+the launch. The sources (with ``csrc/l2_sweep_parts.cu``, the ablation) are
+compiled at first use into one shared library with plain C entry points,
+loaded with ctypes, under ``build/metamaps_tpu_torch/`` beside the package:
+one ``nvcc -c`` for ``sm_90a`` per source, all started together, then one
+link (:func:`load_library`).
 """
 from __future__ import annotations
 
@@ -25,14 +35,25 @@ import torch
 I32_MAX = 2**31 - 1
 I32_MIN = -(2**31)
 
-_SRC = Path(__file__).resolve().parent.parent / "csrc" / "l2_sweep.cu"
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "metamaps_tpu_torch"
+SOURCES = ("l2_sweep", "l2_sweep_rb", "l2_sweep_eager", "l2_sweep_parts")
+HEADERS = ("l2_sweep_common.cuh",)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC"]
 SMEM_LIMIT = 227 * 1024  # dynamic shared memory one Hopper block may use
+_P, _I = ctypes.c_void_p, ctypes.c_int
+#: argument types of each source's ``<name>_launch``
+LAUNCH_ARGS = {
+    "l2_sweep": [_P] * 5 + [_I] * 3 + [_P],  # meta..out, n, e2, sp, stream
+    "l2_sweep_rb": [_P] * 5 + [_I] * 3 + [_P],
+    "l2_sweep_eager": [_P] * 5 + [_I] * 3 + [_P],
+    # meta..out, fold, n, e2, sp, mode bits, stream
+    "l2_sweep_parts": [_P] * 6 + [_I] * 4 + [_P],
+}
 
 _lib = None
-build_info = {}  # seconds and compiler report of the build in this process
+build_info: dict = {}  # the library's path; seconds and compiler report of its build
 
 
 def _nvcc() -> str:
@@ -44,45 +65,94 @@ def _nvcc() -> str:
     for c in cand:
         if c and os.path.exists(c):
             return c
-    raise RuntimeError("nvcc not found: the L2 sweep kernel cannot be built")
+    raise RuntimeError("nvcc not found: the L2 sweep kernels cannot be built")
 
 
-def load_library() -> ctypes.CDLL:
-    """Build (once per source version) and load the kernel library."""
-    global _lib
-    if _lib is not None:
-        return _lib
-    src = _SRC.read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+def _run_all(cmds) -> str:
+    """Start every command at once, wait for all; return their output, or
+    raise with the output of the first that failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"{' '.join(cmd)} failed ({p.returncode}):\n{out}")
+    return "".join(outs)
+
+
+def _build() -> Path:
+    """Compile and link the kernel library unless this version of its
+    sources is built."""
+    blob = b"".join((CSRC / f).read_bytes()
+                    for f in [f"{n}.cu" for n in SOURCES] + list(HEADERS))
+    digest = hashlib.sha1(blob + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     so = BUILD_DIR / f"libl2_sweep_{digest}.so"
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        tag = f"{digest}.{os.getpid()}"
+        objs = [BUILD_DIR / f"{n}_{tag}.o" for n in SOURCES]
         t0 = time.perf_counter()
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SRC)],
-            capture_output=True, text=True,
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
+        report = _run_all(
+            [[_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", str(o),
+              str(CSRC / f"{n}.cu")] for n, o in zip(SOURCES, objs)])
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        report += _run_all([[_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                             *map(str, objs)]])
         os.replace(tmp, so)
+        for o in objs:
+            o.unlink()
         build_info.update(seconds=time.perf_counter() - t0,
-                          report=(proc.stdout + proc.stderr).strip())
-    lib = ctypes.CDLL(str(so))
-    lib.l2_sweep_launch.argtypes = [ctypes.c_void_p] * 5 + [
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    lib.l2_sweep_launch.restype = ctypes.c_int
-    lib.l2_sweep_smem_bytes.argtypes = [ctypes.c_int]
-    lib.l2_sweep_smem_bytes.restype = ctypes.c_longlong
-    lib.l2_sweep_error_string.argtypes = [ctypes.c_int]
-    lib.l2_sweep_error_string.restype = ctypes.c_char_p
-    build_info.setdefault("library", str(so))
-    _lib = lib
-    return lib
+                          report=report.strip())
+    build_info["library"] = str(so)
+    return so
 
 
-def _check(meta, qrank, signinq, rows, sp: int):
+def load_library() -> ctypes.CDLL:
+    """Build (once per version of the sources) and load the kernel library.
+    Its C interface, for each source name: ``<name>_launch`` (pointers,
+    ints, stream; returns a CUDA error code) and ``<name>_smem_bytes(sp)``;
+    and ``l2_sweep_error_string(code)``."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(_build()))
+        for name, args in LAUNCH_ARGS.items():
+            getattr(lib, f"{name}_launch").argtypes = args
+            getattr(lib, f"{name}_launch").restype = ctypes.c_int
+            getattr(lib, f"{name}_smem_bytes").argtypes = [ctypes.c_int]
+            getattr(lib, f"{name}_smem_bytes").restype = ctypes.c_longlong
+        lib.l2_sweep_error_string.argtypes = [ctypes.c_int]
+        lib.l2_sweep_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def smem_bytes(name: str, sp: int) -> int:
+    """Dynamic shared memory of one block of kernel ``name`` at width ``sp``;
+    raises ``ValueError`` above what a Hopper block may use."""
+    smem = getattr(load_library(), f"{name}_smem_bytes")(sp)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"sp={sp} needs {smem} B of shared memory per block "
+                         f"(limit {SMEM_LIMIT})")
+    return smem
+
+
+def launch(name: str, device, *args) -> None:
+    """Call ``<name>_launch(*args, stream)`` on ``device``'s current stream
+    and raise on a non-zero CUDA error code. ``args`` are ctypes values."""
+    lib = load_library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = getattr(lib, f"{name}_launch")(*args, ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: "
+                           f"{lib.l2_sweep_error_string(rc).decode()}")
+
+
+def check_sweep_args(meta, qrank, signinq, rows, sp: int):
+    """Device, type, shape and contiguity checks shared by the sweep
+    wrappers: meta [N, 4], qrank / signinq / rows [N, E2], all int32 on one
+    device and contiguous; ``sp`` a positive multiple of 128."""
     if meta.dim() != 2 or meta.shape[1] != 4:
         raise ValueError(f"meta must be [N, 4], got {tuple(meta.shape)}")
     n = meta.shape[0]
@@ -100,45 +170,69 @@ def _check(meta, qrank, signinq, rows, sp: int):
             raise ValueError(f"{name} must be contiguous")
     if sp <= 0 or sp % 128:
         raise ValueError(f"sp must be a positive multiple of 128, got {sp}")
+    if meta.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {meta.device}")
 
 
-def l2_event_sweep(meta, qrank, signinq, rows, sp: int) -> torch.Tensor:
-    """Sweep every candidate's event stream (see the kernel source).
+def _sweep(wrapper, name: str, meta, qrank, signinq, rows, sp: int):
+    """Launch the sweep kernel ``name`` on CUDA tensors (checked) and count
+    the launch on ``wrapper``; N = 0 launches nothing."""
+    smem_bytes(name, sp)
+    n, e2 = qrank.shape
+    out = torch.empty((n, 4), dtype=torch.int32, device=meta.device)
+    if n == 0:
+        return out
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr())
+    launch(name, meta.device, ptr(meta), ptr(qrank), ptr(signinq), ptr(rows),
+           ptr(out), ctypes.c_int(n), ctypes.c_int(e2), ctypes.c_int(sp))
+    wrapper.launches += 1
+    return out
+
+
+def l2_event_sweep_batch(meta, qrank, signinq, rows, sp: int) -> torch.Tensor:
+    """Sweep every candidate's event stream (``csrc/l2_sweep.cu``).
 
     ``meta`` [N, 4] int32 (s, row_lo, row_hi, n_ev); ``qrank``, ``signinq``,
     ``rows`` [N, E2] int32; ``sp`` the rank-plane width, a multiple of 128
     above every query rank. Returns [N, 4] int32 (best, first, last, 0).
     CPU tensors take :func:`l2_event_sweep_ref`; CUDA tensors launch the
     kernel on the current stream (no synchronisation) or raise."""
-    _check(meta, qrank, signinq, rows, sp)
+    check_sweep_args(meta, qrank, signinq, rows, sp)
     if meta.device.type == "cpu":
         return l2_event_sweep_ref(meta, qrank, signinq, rows, sp)
-    if meta.device.type != "cuda":
-        raise ValueError(f"unsupported device {meta.device}")
-    lib = load_library()
-    smem = lib.l2_sweep_smem_bytes(sp)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"sp={sp} needs {smem} B of shared memory per block "
-                         f"(limit {SMEM_LIMIT})")
-    n, e2 = qrank.shape
-    out = torch.empty((n, 4), dtype=torch.int32, device=meta.device)
-    if n == 0:
-        return out
-    with torch.cuda.device(meta.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.l2_sweep_launch(
-            ctypes.c_void_p(meta.data_ptr()), ctypes.c_void_p(qrank.data_ptr()),
-            ctypes.c_void_p(signinq.data_ptr()), ctypes.c_void_p(rows.data_ptr()),
-            ctypes.c_void_p(out.data_ptr()), n, e2, sp, ctypes.c_void_p(stream),
-        )
-    if rc != 0:
-        raise RuntimeError(
-            f"l2_sweep launch failed: {lib.l2_sweep_error_string(rc).decode()}")
-    l2_event_sweep.launches += 1
-    return out
+    return _sweep(l2_event_sweep_batch, "l2_sweep", meta, qrank, signinq,
+                  rows, sp)
 
 
-l2_event_sweep.launches = 0  # kernel launches since the last reset
+def l2_event_sweep_rb(meta, qrank, signinq, rows, sp: int) -> torch.Tensor:
+    """The same function as :func:`l2_event_sweep_batch`, one warp per
+    candidate (``csrc/l2_sweep_rb.cu``). Its planes take 64 * sp bytes of
+    shared memory per block of 8 candidates, so ``sp`` is at most 3584;
+    above that it raises ``ValueError``."""
+    check_sweep_args(meta, qrank, signinq, rows, sp)
+    if meta.device.type == "cpu":
+        return l2_event_sweep_ref(meta, qrank, signinq, rows, sp)
+    return _sweep(l2_event_sweep_rb, "l2_sweep_rb", meta, qrank, signinq,
+                  rows, sp)
+
+
+def l2_event_sweep(meta, qrank, signinq, rows, s_pad: int) -> torch.Tensor:
+    """The same function as :func:`l2_event_sweep_batch`, evaluated eagerly
+    after each event (``csrc/l2_sweep_eager.cu``). ``s_pad``, the plane
+    width, must be a multiple of 1024, as in the JAX kernel."""
+    if s_pad <= 0 or s_pad % 1024:
+        raise ValueError(f"s_pad must be a positive multiple of 1024, got {s_pad}")
+    check_sweep_args(meta, qrank, signinq, rows, s_pad)
+    if meta.device.type == "cpu":
+        return l2_event_sweep_ref(meta, qrank, signinq, rows, s_pad)
+    return _sweep(l2_event_sweep, "l2_sweep_eager", meta, qrank, signinq,
+                  rows, s_pad)
+
+
+# kernel launches since the last reset
+l2_event_sweep_batch.launches = 0
+l2_event_sweep_rb.launches = 0
+l2_event_sweep.launches = 0
 
 
 def random_event_streams(rng, n: int, e2: int, sc: int, row_span: int = 400):

@@ -176,7 +176,7 @@ def winnow_fast(seq: np.ndarray, k: int, w: int, alphabet_size: int = 4):
     """Fastest available host winnowing: the native C++ deque
     (native/winnow.cpp, bit-exact with :func:`winnow_oracle`) when the
     toolchain is available, :func:`winnow_np` otherwise."""
-    from metamaps_tpu.io.native import winnow_native
+    from metamaps_tpu_torch.io.native import winnow_native
 
     out = winnow_native(seq, k, w, alphabet_size)
     if out is not None:

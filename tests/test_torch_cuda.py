@@ -4,22 +4,29 @@ This file imports no JAX, so that it also runs on a machine without it:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-(``--noconftest`` skips ``tests/conftest.py``, which configures JAX.) The
+(``--noconftest`` skips ``tests/conftest.py``, which configures JAX.) Each
 sweep kernel must equal its plain version bit for bit: both are exact int32.
 """
 import numpy as np
 import pytest
 import torch
 
-from metamaps_tpu.params import Parameters
 from metamaps_tpu_torch.engine import mapper_oracle
 from metamaps_tpu_torch.engine.index import SketchShard
 from metamaps_tpu_torch.engine.mapper_torch import TorchMapperEngine
 from metamaps_tpu_torch.ops.l2_sweep import (
     l2_event_sweep,
+    l2_event_sweep_batch,
+    l2_event_sweep_rb,
     l2_event_sweep_ref,
     random_event_streams,
 )
+from metamaps_tpu_torch.ops.l2_sweep_parts import (
+    l2_sweep_parts,
+    l2_sweep_parts_ref,
+)
+from metamaps_tpu_torch.params import Parameters
+from metamaps_tpu_torch.profiling.sweep_bench import parts_streams
 from metamaps_tpu_torch.ops.winnow import winnow_np
 
 from util_sim import random_genome, revcomp, sample_reads
@@ -43,10 +50,10 @@ def test_sweep_kernel_equals_plain(cuda, sp, e2, seed):
     arrs = random_event_streams(rng, 67, e2, sp - 1)
     cpu = [torch.from_numpy(a) for a in arrs]
     dev = [a.to(cuda) for a in cpu]
-    before = l2_event_sweep.launches
-    got = l2_event_sweep(*dev, sp)
+    before = l2_event_sweep_batch.launches
+    got = l2_event_sweep_batch(*dev, sp)
     torch.cuda.synchronize()
-    assert l2_event_sweep.launches == before + 1
+    assert l2_event_sweep_batch.launches == before + 1
     want = l2_event_sweep_ref(*cpu, sp)
     assert torch.equal(got.cpu(), want)
 
@@ -55,11 +62,11 @@ def test_sweep_wrapper_rejects_bad_input(cuda):
     arrs = [torch.from_numpy(a).to(cuda) for a in
             random_event_streams(np.random.default_rng(5), 4, 16, 100)]
     with pytest.raises(TypeError):
-        l2_event_sweep(arrs[0].long(), *arrs[1:], 128)
+        l2_event_sweep_batch(arrs[0].long(), *arrs[1:], 128)
     with pytest.raises(ValueError):
-        l2_event_sweep(*arrs, 100)
+        l2_event_sweep_batch(*arrs, 100)
     with pytest.raises(ValueError):
-        l2_event_sweep(arrs[0].cpu(), *arrs[1:], 128)
+        l2_event_sweep_batch(arrs[0].cpu(), *arrs[1:], 128)
 
 
 def test_engine_on_card_matches_oracle(cuda):
@@ -81,9 +88,85 @@ def test_engine_on_card_matches_oracle(cuda):
     seqs += [np.tile(g[1000:1400], 8), revcomp(g[20000:24096]),
              random_genome(rng, 3000)]
     engine = TorchMapperEngine(shard, params, device="cuda")
-    before = l2_event_sweep.launches
+    before = l2_event_sweep_batch.launches
     got = engine.map_reads(seqs)
     torch.cuda.synchronize()
-    assert l2_event_sweep.launches > before
+    assert l2_event_sweep_batch.launches > before
     for i, seq in enumerate(seqs):
         assert got[i] == mapper_oracle.map_read(shard, params, seq), f"read {i}"
+
+
+@pytest.mark.parametrize("sp,e2,seed", [(128, 300, 0), (1152, 700, 1),
+                                        (3584, 400, 2)])
+def test_rb_kernel_equals_plain(cuda, sp, e2, seed):
+    """67 candidates leave a partial block of 8 warps; sp 1152 and 3584
+    need more than 48 KB of shared memory per block (64 * sp bytes)."""
+    arrs = random_event_streams(np.random.default_rng(seed), 67, e2, sp - 1)
+    cpu = [torch.from_numpy(a) for a in arrs]
+    before = l2_event_sweep_rb.launches
+    got = l2_event_sweep_rb(*[a.to(cuda) for a in cpu], sp)
+    torch.cuda.synchronize()
+    assert l2_event_sweep_rb.launches == before + 1
+    assert torch.equal(got.cpu(), l2_event_sweep_ref(*cpu, sp))
+
+
+@pytest.mark.parametrize("s_pad,e2,seed", [(1024, 300, 0), (2048, 700, 1),
+                                           (10240, 257, 2)])
+def test_eager_kernel_equals_plain(cuda, s_pad, e2, seed):
+    """row_hi = INT32_MAX on every fourth candidate: row_hi + 1 must not
+    overflow in the kernel."""
+    arrs = random_event_streams(np.random.default_rng(seed), 67, e2, s_pad - 1)
+    arrs[0][::4, 2] = 2**31 - 1
+    cpu = [torch.from_numpy(a) for a in arrs]
+    before = l2_event_sweep.launches
+    got = l2_event_sweep(*[a.to(cuda) for a in cpu], s_pad)
+    torch.cuda.synchronize()
+    assert l2_event_sweep.launches == before + 1
+    assert torch.equal(got.cpu(), l2_event_sweep_ref(*cpu, s_pad))
+
+
+@pytest.mark.parametrize("mode", ["cms", "cmsf", "cmf", "s"])
+def test_parts_kernel_equals_plain(cuda, mode):
+    """Output and fold state, at a small ablation shape (E2 = 3 * 128 + 45:
+    the tail is not swept)."""
+    cpu = [torch.from_numpy(a) for a in parts_streams(12, 1152, 429, seed=4)]
+    before = l2_sweep_parts.launches
+    got = l2_sweep_parts(*[a.to(cuda) for a in cpu], 1152, mode)
+    torch.cuda.synchronize()
+    assert l2_sweep_parts.launches == before + 1
+    want = l2_sweep_parts_ref(*cpu, 1152, mode)
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+
+
+def test_variant_wrappers_reject_bad_widths(cuda):
+    arrs = [torch.from_numpy(a).to(cuda) for a in
+            random_event_streams(np.random.default_rng(5), 4, 16, 100)]
+    with pytest.raises(ValueError, match="shared memory"):
+        l2_event_sweep_rb(*arrs, 3712)  # 64 * 3712 B > 227 KB
+    with pytest.raises(ValueError, match="multiple of 1024"):
+        l2_event_sweep(*arrs, 1152)
+    with pytest.raises(ValueError, match="mode letters"):
+        l2_sweep_parts(*arrs, 1152, "cmq")
+    with pytest.raises(TypeError):
+        l2_sweep_parts(arrs[0].long(), *arrs[1:], 1152, "cms")
+
+
+@pytest.mark.parametrize("name", ["batch", "rb", "eager", "parts"])
+def test_empty_input_launches_nothing(cuda, name):
+    """N = 0 candidates: an empty result, no kernel launched, no count."""
+    wrapper, width = {
+        "batch": (l2_event_sweep_batch, (1152,)),
+        "rb": (l2_event_sweep_rb, (1152,)),
+        "eager": (l2_event_sweep, (2048,)),
+        "parts": (l2_sweep_parts, (1152, "cmsf")),
+    }[name]
+    meta = torch.zeros((0, 4), dtype=torch.int32, device=cuda)
+    events = [torch.zeros((0, 64), dtype=torch.int32, device=cuda)
+              for _ in range(3)]
+    before = wrapper.launches
+    got = wrapper(meta, *events, *width)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before
+    for out in got if isinstance(got, tuple) else (got,):
+        assert out.shape == (0, 4)

@@ -170,7 +170,8 @@ def test_cli_outputs_identical_to_jax_package(mini_db):
                           "--output", out_port, "--all", "--minReadLen",
                           "2000", "--mapping-engine", "torch", "--device",
                           "cpu"], engine_stats=stats) == 0
-    assert port_cli_main(["classify", "--DB", db, "--mappings", out_port]) == 0
+    assert port_cli_main(["classify", "--DB", db, "--mappings", out_port,
+                          "--device", "cpu"]) == 0
     assert stats["reads_total"] == 43 and stats["reads_mappable"] == 41
     assert stats["oracle_fallbacks"] == 0 and stats["l2_candidates"] >= 40
     for suffix in OUTPUT_SUFFIXES:

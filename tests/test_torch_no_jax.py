@@ -1,6 +1,8 @@
-"""The port runs without JAX: with ``jax`` blocked on ``sys.meta_path``, every
-``metamaps_tpu_torch`` module imports and ``mapDirectly`` + ``classify``
-run through the port's CLI on a tiny database (torch engine on the CPU)."""
+"""The port stands alone: with ``jax``, ``jaxlib`` and the JAX package
+``metamaps_tpu`` blocked on ``sys.meta_path``, every ``metamaps_tpu_torch``
+module and ``chip_smoke.py`` import, and ``mapDirectly`` + ``classify`` run
+through the port's CLI on a tiny database (torch engine and EM rounds on
+the CPU)."""
 import os
 import subprocess
 import sys
@@ -12,14 +14,16 @@ SCRIPT = textwrap.dedent(
     """
     import importlib, importlib.abc, os, pkgutil, sys
 
-    class BlockJax(importlib.abc.MetaPathFinder):
+    BLOCKED = ("jax", "jaxlib", "metamaps_tpu")
+
+    class Block(importlib.abc.MetaPathFinder):
         def find_spec(self, name, path, target=None):
-            if name.split(".")[0] in ("jax", "jaxlib"):
-                raise ImportError("jax is blocked: " + name)
+            if name.split(".")[0] in BLOCKED:
+                raise ImportError("blocked: " + name)
             return None
 
-    sys.meta_path.insert(0, BlockJax())
-    for mod in [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")]:
+    sys.meta_path.insert(0, Block())
+    for mod in [m for m in sys.modules if m.split(".")[0] in BLOCKED]:
         del sys.modules[mod]
 
     import numpy as np
@@ -28,13 +32,15 @@ SCRIPT = textwrap.dedent(
         metamaps_tpu_torch.__path__, "metamaps_tpu_torch.")]
     for name in names:
         importlib.import_module(name)
-    print("imported", len(names))
+    sys.path.insert(0, sys.argv[1])
+    import chip_smoke
+    print("imported", len(names), "and chip_smoke")
 
     sys.path.insert(0, os.path.join(sys.argv[1], "tests"))
     from util_db import make_mini_db, write_reads_fastq
     from util_sim import random_genome, sample_reads
     from metamaps_tpu_torch.cli import main
-    from metamaps_tpu.io.mappings import read_meta
+    from metamaps_tpu_torch.io.mappings import read_meta
 
     root = sys.argv[2]
     db = os.path.join(root, "DB")
@@ -50,13 +56,14 @@ SCRIPT = textwrap.dedent(
                  "--query", fq, "--output", out, "--all", "--minReadLen",
                  "1000", "--mapping-engine", "torch", "--device", "cpu"],
                 engine_stats=stats) == 0
-    assert main(["classify", "--DB", db, "--mappings", out]) == 0
+    assert main(["classify", "--DB", db, "--mappings", out,
+                 "--device", "cpu"]) == 0
     meta = read_meta(out)
     assert meta["TotalReads"] == 7 and meta["ReadsTooShort"] == 1, meta
     assert meta["ReadsMapped"] == 6, meta
     assert stats["l2_candidates"] > 0 and stats["oracle_fallbacks"] == 0, stats
     assert os.path.getsize(out + ".EM.WIMP") > 0
-    assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")]
+    assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
     print("ok")
     """
 )
