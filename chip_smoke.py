@@ -15,9 +15,11 @@ Phases (each prints its wall seconds; any failure exits non-zero):
 2. build: one nvcc -c per kernel source, all at once, for sm_90a, linked
    into one library under build/metamaps_tpu_torch/;
 3. kernel vs plain on the card, bit for bit: the real L2 event streams of
-   the first read chunk (through all three sweep kernels), and random
-   contract-conforming streams with plane widths below and above 48 KB of
-   shared memory; CUDA-event timings;
+   the first read chunk (through all three sweep kernels; per slab the
+   batch kernel's time and its candidates and events in each of its two
+   modes), random contract-conforming streams with plane widths below and
+   above 48 KB of shared memory, and paired (setup-shaped) and mixed
+   streams at sp 128, 1280 and 10240; CUDA-event timings;
 4. main path: synthetic DB (write_synth_db_dir) + ONT-like reads, then the
    port's ``mapDirectly`` (torch engine on CUDA) and ``classify`` (EM rounds
    in float64 on CUDA);
@@ -126,19 +128,25 @@ def compare(label, fn, ref, arrs, *width):
 
 
 def kernel_entry(name, source, replaces, arrs, width, clock_mhz, err, fn,
-                 ref, swept=None, outputs=1, **extra):
+                 ref, swept=None, outputs=1, sp=None, **extra):
     """One row of the kernels line: the kernel's and the plain version's
     CUDA-event times on ``arrs`` and the bound on the same inputs, from the
-    events and plane width this data needs (``swept`` and ``outputs`` as in
-    ``sweep_bench.sweep_bound``)."""
+    work this data needs (``swept``, ``outputs`` and ``sp`` as in
+    ``sweep_bench.sweep_bound``; with ``sp`` the row also carries the
+    bound with every event recounted and the events in each mode)."""
     ms = sweep_bench.time_ms(lambda: fn(*arrs, *width), arrs[0].device, 5)
     plain_ms = sweep_bench.time_ms(lambda: ref(*arrs, *width),
                                    arrs[0].device, 1)
     host = [a.cpu().numpy() for a in arrs]
     bound_ms, bound_by, counts = sweep_bench.sweep_bound(
-        host[0], host[1], host[2], clock_mhz, swept=swept, outputs=outputs)
+        host[0], host[1], host[2], clock_mhz, swept=swept, outputs=outputs,
+        sp=sp)
     log(f"{name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
         f"{bound_ms:.4f} ms ({bound_by}; {counts})")
+    if sp is not None:
+        extra.update(recount_bound_ms=counts["recount_ms"],
+                     incremental_events=counts["incremental_events"],
+                     recount_events=counts["recount_events"])
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
@@ -247,12 +255,25 @@ def main(argv=None) -> int:
         chunk = [r for r in reads if engine._bucket_of(len(r)) == b0]
         setups = engine.l2_slab_setups(chunk[: engine.CHUNK])
         ref = l2_sweep.l2_event_sweep_ref
-        errs = []
+        batch = l2_sweep.l2_event_sweep_batch
+        errs, slab_ms, slab_modes = [], [], []
         for i, (st, sp) in enumerate(setups):
             arrs = [t.contiguous() for t in (st.meta, st.qrank, st.signinq,
                                              st.rows)]
-            errs.append(compare(f"main-path slab {i}",
-                                l2_sweep.l2_event_sweep_batch, ref, arrs, sp))
+            errs.append(compare(f"main-path slab {i}", batch, ref, arrs, sp))
+            slab_ms.append(sweep_bench.time_ms(lambda: batch(*arrs, sp), dev,
+                                               5))
+            inc, rec = sweep_bench.sweep_routes(
+                *(a.cpu().numpy() for a in arrs[:3]), sp)
+            modes = dict(candidates=len(inc),
+                         incremental_only=int((rec == 0).sum()),
+                         with_recount=int((rec > 0).sum()),
+                         incremental_events=int(inc.sum()),
+                         recount_events=int(rec.sum()))
+            slab_modes.append(modes)
+            log(f"main-path slab {i}: N={len(inc)} E2={arrs[1].shape[1]} "
+                f"sp={sp}; batch kernel {slab_ms[-1]:.4f} ms; modes "
+                + json.dumps(modes))
             if i == 0:
                 slab0 = (arrs, sp)
                 # the same function through the two other sweep kernels
@@ -260,18 +281,33 @@ def main(argv=None) -> int:
                         arrs, sp)
                 compare("main-path slab 0", l2_sweep.l2_event_sweep, ref,
                         arrs, -(-sp // 1024) * 1024)
+        log(f"batch kernel over the {len(slab_ms)} main-path slabs: "
+            f"{sum(slab_ms):.4f} ms; candidates with recount events "
+            f"{sum(m['with_recount'] for m in slab_modes)} of "
+            f"{sum(m['candidates'] for m in slab_modes)}")
         for sp_r, e2 in ((1152, 900), (10240, 400)):  # 9 KB and 80 KB planes
             arrs = [torch.from_numpy(a).to(dev) for a in
                     l2_sweep.random_event_streams(
                         np.random.default_rng(sp_r), 257, e2, sp_r - 1)]
-            errs.append(compare(f"random sp={sp_r}",
-                                l2_sweep.l2_event_sweep_batch, ref, arrs,
-                                sp_r))
+            errs.append(compare(f"random sp={sp_r}", batch, ref, arrs, sp_r))
+        # setup-shaped streams (incremental mode only) and mixed ones, in
+        # which ranks go negative and recover
+        for flip, kind in ((0.0, "paired"), (0.04, "mixed")):
+            for sp_r, e2 in ((128, 600), (1280, 1400), (10240, 400)):
+                host = l2_sweep.paired_event_streams(
+                    np.random.default_rng(sp_r + 1), 257, e2, sp_r - 1,
+                    flip=flip)
+                inc, rec = sweep_bench.sweep_routes(*host[:3], sp_r)
+                arrs = [torch.from_numpy(a).to(dev) for a in host]
+                errs.append(compare(
+                    f"{kind} sp={sp_r} (events incremental {int(inc.sum())}, "
+                    f"recount {int(rec.sum())})", batch, ref, arrs, sp_r))
         arrs, sp = slab0
         batch_row = kernel_entry(
             "l2_event_sweep_batch", "metamaps_tpu_torch/csrc/l2_sweep.cu",
             "metamaps_tpu/ops/l2_pallas.py:116", arrs, (sp,), clock_mhz,
-            max(errs), l2_sweep.l2_event_sweep_batch, ref)
+            max(errs), batch, ref, sp=sp, ms_by_slab=slab_ms,
+            ms_all_slabs=sum(slab_ms), modes_by_slab=slab_modes)
 
     # ---- 4. main path -----------------------------------------------------
     torch.cuda.reset_peak_memory_stats(dev)
@@ -418,13 +454,14 @@ def main(argv=None) -> int:
                          "metamaps_tpu_torch/csrc/l2_sweep_rb.cu",
                          "metamaps_tpu/ops/l2_pallas.py:233", full["inputs"],
                          (sp,), clock_mhz, errs["l2_event_sweep_rb"],
-                         l2_sweep.l2_event_sweep_rb, ref, scenario="full"),
+                         l2_sweep.l2_event_sweep_rb, ref, sp=sp,
+                         scenario="full"),
             kernel_entry("l2_event_sweep",
                          "metamaps_tpu_torch/csrc/l2_sweep_eager.cu",
                          "metamaps_tpu/ops/l2_pallas.py:41", full["inputs"],
                          (full["s_pad"],), clock_mhz,
                          errs["l2_event_sweep"], l2_sweep.l2_event_sweep, ref,
-                         scenario="full"),
+                         sp=full["s_pad"], scenario="full"),
         ]
         parts_fn = l2_sweep_parts.l2_sweep_parts
         parts_ref = l2_sweep_parts.l2_sweep_parts_ref

@@ -5,8 +5,8 @@ kernel in ``metamaps_tpu/ops/l2_pallas.py``; their sources under
 ``metamaps_tpu_torch/csrc/`` state the contract and design:
 
 - :func:`l2_event_sweep_batch` (``csrc/l2_sweep.cu``): ``l2_event_sweep_batch``
-  / ``_batch_sweep_kernel``, the mapping path's sweep; one thread block per
-  candidate;
+  / ``_batch_sweep_kernel``, the mapping path's sweep; one warp per
+  candidate, O(1) work per event while the count has its prefix form;
 - :func:`l2_event_sweep_rb` (``csrc/l2_sweep_rb.cu``): ``l2_event_sweep_rb``
   / ``_rb_sweep_kernel``; one warp per candidate, 8 to a block;
 - :func:`l2_event_sweep` (``csrc/l2_sweep_eager.cu``): ``l2_event_sweep`` /
@@ -255,6 +255,48 @@ def random_event_streams(rng, n: int, e2: int, sc: int, row_span: int = 400):
         qrank[i, :ne] = rng.integers(0, sc + 1, ne)
         if i % 3 == 1 and ne < e2:
             signinq[i, ne] = rng.choice([-2, -1, 1, 2])
+            qrank[i, ne] = rng.integers(0, sc)
+        lo = int(rng.integers(-80, row_span))
+        hi = int(rng.integers(-80, row_span + 40))
+        meta[i] = (int(rng.integers(0, sc + 1)), lo, hi, ne)
+    return meta, qrank, signinq, rows
+
+
+def paired_event_streams(rng, n: int, e2: int, sc: int, flip: float = 0.0,
+                         row_span: int = 400):
+    """Event streams shaped like the setup's, as numpy int32 arrays (meta,
+    qrank, signinq, rows): each occurrence adds its base (1 ref-only, 2
+    in-query) at one row and removes it at the same or a later row, ranks in
+    [0, sc], rows ascending with adds before removals on equal rows. No
+    rank's ref-only multiplicity then goes negative, so the batch kernel
+    stays in its incremental mode. With ``flip`` > 0 that share of the
+    ref-only occurrences removes first and adds back later: a rank goes
+    negative and recovers (the kernel's recount mode, and back). Like
+    :func:`random_event_streams`: empty candidates, padding after n_ev, a
+    non-zero-sign event at row INT32_MAX past n_ev on every third
+    candidate, and row_lo > row_hi on some."""
+    import numpy as np
+
+    meta = np.zeros((n, 4), np.int32)
+    qrank = np.zeros((n, e2), np.int32)
+    signinq = np.zeros((n, e2), np.int32)
+    rows = np.full((n, e2), I32_MAX, np.int32)
+    for i in range(n):
+        k = 0 if i % 7 == 0 else int(rng.integers(1, e2 // 2 + 1))
+        ne = 2 * k
+        q = rng.integers(0, sc + 1, k)
+        base = rng.choice([1, 2], k)
+        flipped = (base == 1) & (rng.random(k) < flip)
+        add = np.where(flipped, -base, base)
+        at = rng.integers(-60, row_span, k)
+        until = at + rng.integers(0, row_span // 4 + 1, k)
+        ev_row = np.concatenate([at, until])
+        order = np.lexsort((np.repeat([0, 1], k), ev_row))  # adds first on ties
+        rows[i, :ne] = ev_row[order]
+        signinq[i, :ne] = np.concatenate([add, -add])[order]
+        qrank[i, :ne] = np.concatenate([q, q])[order]
+        if i % 3 == 1 and ne < e2:
+            signinq[i, ne] = -rng.choice([1, 2])
             qrank[i, ne] = rng.integers(0, sc)
         lo = int(rng.integers(-80, row_span))
         hi = int(rng.integers(-80, row_span + 40))

@@ -54,6 +54,11 @@ PARTS_MODES = ("cms", "cmsf")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 SMS, INT32_LANES = 132, 64  # H100 SXM: SMs, INT32 lanes per SM
 OPS_PER_PLANE_ELEMENT = 3  # suffix add, one-hot test, count per rank and event
+# an event while the count has its prefix form (csrc/l2_sweep.cu): the lazy
+# close (segment test, count against best, three selects: 4), the plane's
+# add (1), the step test of the prefix end J and its move (2), the count's
+# add (1)
+OPS_PER_INCREMENTAL_EVENT = 8
 
 
 def scenario_streams(rng, K, R, SP, n_real, ev_frac):
@@ -106,21 +111,58 @@ def time_ms(fn, device, reps: int) -> float:
     return (time.perf_counter() - t0) * 1e3 / reps
 
 
+def sweep_routes(meta, qrank, signinq, sp: int):
+    """How each candidate's swept events split between the two modes of the
+    batch kernel (``csrc/l2_sweep.cu``), on numpy inputs of the sweep's
+    contract: an event is in recount mode when, just after it, some query
+    rank's ref-only multiplicity r is negative (the count then lacks its
+    prefix form), and in incremental mode otherwise. r is replayed per
+    (candidate, rank): a ref-only event (sign != 0, |signinq| != 2) at qr <
+    sp moves r[max(qr, 0)] by its sign. Returns (incremental [N], recount
+    [N]) int64 counts of the swept events (n_ev clamped to [0, E2])."""
+    meta, qrank, signinq = map(np.asarray, (meta, qrank, signinq))
+    n, e2 = qrank.shape
+    n_ev = np.clip(meta[:, 3].astype(np.int64), 0, e2)
+    live = np.arange(e2)[None, :] < n_ev[:, None]
+    ref = live & (signinq != 0) & (np.abs(signinq) != 2) & (qrank < sp)
+    cand, ev = np.nonzero(ref)
+    sign = np.sign(signinq[cand, ev]).astype(np.int64)
+    key = cand * np.int64(sp) + np.maximum(qrank[cand, ev], 0)
+    order = np.argsort(key, kind="stable")  # by (candidate, rank), then event
+    key, sign = key[order], sign[order]
+    first = np.ones(key.size, bool)  # an event that opens its (candidate, rank)
+    first[1:] = key[1:] != key[:-1]
+    run = np.cumsum(sign)
+    after = run - (run - sign)[first][np.cumsum(first) - 1]  # r just after it
+    delta = np.zeros((n, e2), np.int32)  # change of the count of negative ranks
+    delta[cand[order], ev[order]] = ((after < 0).astype(np.int32)
+                                     - (after - sign < 0))
+    neg = np.cumsum(delta, axis=1, dtype=np.int32)
+    recount = (live & (neg > 0)).sum(axis=1).astype(np.int64)
+    return n_ev - recount, recount
+
+
 def sweep_bound(meta, qrank, signinq, sm_clock_mhz: float,
-                swept=None, outputs: int = 1):
+                swept=None, outputs: int = 1, sp: int = None):
     """The least time the card could take for one sweep on these inputs
     (numpy arrays): the larger of the bytes bound (the swept events and
     ``meta`` read once, ``outputs`` [N, 4] int32 arrays written once, at
-    3.35 TB/s) and the operations bound (about 3 integer operations per
-    plane element per swept event, at the CUDA cores' INT32 rate of 132
-    SMs x 64 lanes x the SM clock).
+    3.35 TB/s) and the operations bound (integer operations at the CUDA
+    cores' INT32 rate of 132 SMs x 64 lanes x the SM clock).
 
-    Both count only what this data needs, not the kernel's plane width:
-    candidate n sweeps ``swept[n]`` events (its own n_ev clamped to E2
-    unless ``swept`` gives the counts), and its planes need the ranks up to
-    the highest query rank of an in-query event (|signinq| == 2) among
-    them, since the count reads the C plane only where the M plane is set.
-    Returns (ms, "bytes" or "operations", the bounds' inputs)."""
+    The operations count what this data needs, whatever implements it. A
+    recount event needs about 3 operations per plane element, and only the
+    ranks up to the candidate's highest in-query rank among its swept
+    events (the count reads the C plane only where the M plane is set).
+    Given ``sp``, the inputs are the sweep's (``l2_event_sweep_batch``,
+    ``_rb``, ``l2_event_sweep``): an event in incremental mode
+    (:func:`sweep_routes`) needs ``OPS_PER_INCREMENTAL_EVENT`` operations
+    and only the others a recount. Without ``sp`` (the ablation, whose work
+    is the recount's parts by definition) every swept event is a recount.
+    Candidate n sweeps ``swept[n]`` events (its own n_ev clamped to E2
+    unless ``swept`` gives the counts). Returns (ms, "bytes" or
+    "operations", the bounds' inputs), the inputs with ``recount_ms``, the
+    bound with every swept event recounted."""
     meta, qrank, signinq = map(np.asarray, (meta, qrank, signinq))
     n, e2 = qrank.shape
     if swept is None:
@@ -130,15 +172,26 @@ def sweep_bound(meta, qrank, signinq, sm_clock_mhz: float,
     inq = live & (np.abs(signinq) == 2)
     width = np.where(inq.any(axis=1),
                      np.where(inq, qrank.astype(np.int64) + 1, 0).max(axis=1), 0)
+    if sp is None:
+        incremental, recount = np.zeros(n, np.int64), swept
+    else:
+        incremental, recount = sweep_routes(meta, qrank, signinq, sp)
     swept_events = int(swept.sum())
     n_bytes = n * 4 * 4 + 3 * swept_events * 4 + outputs * n * 4 * 4
-    n_ops = OPS_PER_PLANE_ELEMENT * int((swept * width).sum())
+    recount_ops = OPS_PER_PLANE_ELEMENT * int((swept * width).sum())
+    n_ops = (OPS_PER_INCREMENTAL_EVENT * int(incremental.sum())
+             + OPS_PER_PLANE_ELEMENT * int((recount * width).sum()))
+    rate = SMS * INT32_LANES * sm_clock_mhz * 1e6
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = n_ops / (SMS * INT32_LANES * sm_clock_mhz * 1e6) * 1e3
+    ops_ms = n_ops / rate * 1e3
     by = "bytes" if bytes_ms >= ops_ms else "operations"
     return max(bytes_ms, ops_ms), by, dict(
         bytes=n_bytes, ops=n_ops, swept_events=swept_events,
-        max_width=int(width.max()) if n else 0)
+        max_width=int(width.max()) if n else 0,
+        incremental_events=int(incremental.sum()),
+        recount_events=int(recount.sum()),
+        recount_ops=recount_ops,
+        recount_ms=max(bytes_ms, recount_ops / rate * 1e3))
 
 
 def run(device, reps: int = 10, scenarios=SCENARIOS, parts_shape=PARTS_SHAPE,

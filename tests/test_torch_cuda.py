@@ -19,6 +19,7 @@ from metamaps_tpu_torch.ops.l2_sweep import (
     l2_event_sweep_batch,
     l2_event_sweep_rb,
     l2_event_sweep_ref,
+    paired_event_streams,
     random_event_streams,
 )
 from metamaps_tpu_torch.ops.l2_sweep_parts import (
@@ -56,6 +57,49 @@ def test_sweep_kernel_equals_plain(cuda, sp, e2, seed):
     assert l2_event_sweep_batch.launches == before + 1
     want = l2_event_sweep_ref(*cpu, sp)
     assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("flip", [0.0, 0.04], ids=["paired", "mixed"])
+@pytest.mark.parametrize("sp,e2,seed", [(128, 300, 4), (1280, 700, 5),
+                                        (10240, 400, 6)])
+def test_sweep_kernel_equals_plain_on_paired_streams(cuda, sp, e2, seed,
+                                                     flip):
+    """Streams shaped like the setup's (incremental mode only) and mixed
+    ones, in which ranks go negative and recover (recount mode and back);
+    sp 10240 needs more than 48 KB of shared memory per block."""
+    arrs = paired_event_streams(np.random.default_rng(seed), 67, e2, sp - 1,
+                                flip=flip)
+    cpu = [torch.from_numpy(a) for a in arrs]
+    before = l2_event_sweep_batch.launches
+    got = l2_event_sweep_batch(*[a.to(cuda) for a in cpu], sp)
+    torch.cuda.synchronize()
+    assert l2_event_sweep_batch.launches == before + 1
+    assert torch.equal(got.cpu(), l2_event_sweep_ref(*cpu, sp))
+
+
+def test_sweep_kernel_empty_and_full_candidates(cuda):
+    """One candidate with no events beside one with E2 of them (several
+    tiles of staged events, the last one partial), and E2 not a multiple
+    of 4 (rows not 16-byte aligned)."""
+    e2, sp = 1001, 256
+    arrs = [a.copy() for a in paired_event_streams(
+        np.random.default_rng(8), 9, e2 - 1, sp - 1)]
+    meta, qrank, signinq, rows = arrs
+    pad = lambda a, fill: np.pad(a, ((0, 0), (0, 1)), constant_values=fill)
+    qrank, signinq, rows = pad(qrank, 0), pad(signinq, 0), pad(rows, 2**31 - 1)
+    meta[0, 3] = 0  # candidate 0 has no events
+    rows[1] = np.sort(np.random.default_rng(9).integers(0, 5000, e2))
+    i = np.arange(e2)  # candidate 1 has E2: add, add, remove, remove
+    signinq[1] = np.array([2, 1, -2, -1])[i % 4]
+    qrank[1] = (i // 4 * 7 + np.array([0, 3, 0, 3])[i % 4]) % sp
+    meta[1] = (200, 0, 5000, e2)
+    cpu = [torch.from_numpy(np.ascontiguousarray(a))
+           for a in (meta, qrank, signinq, rows)]
+    got = l2_event_sweep_batch(*[a.to(cuda) for a in cpu], sp)
+    torch.cuda.synchronize()
+    want = l2_event_sweep_ref(*cpu, sp)
+    assert torch.equal(got.cpu(), want)
+    assert want[0].tolist() == [0, -1, -1, 0] and int(want[1, 0]) > 0
 
 
 def test_sweep_wrapper_rejects_bad_input(cuda):
