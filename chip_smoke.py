@@ -15,11 +15,12 @@ Phases (each prints its wall seconds; any failure exits non-zero):
 2. build: one nvcc -c per kernel source, all at once, for sm_90a, linked
    into one library under build/metamaps_tpu_torch/;
 3. kernel vs plain on the card, bit for bit: the real L2 event streams of
-   the first read chunk (through all three sweep kernels; per slab the
-   batch kernel's time and its candidates and events in each of its two
-   modes), random contract-conforming streams with plane widths below and
-   above 48 KB of shared memory, and paired (setup-shaped) and mixed
-   streams at sp 128, 1280 and 10240; CUDA-event timings;
+   the first read chunk through all three sweep kernels (per slab each
+   kernel's time, and the candidates and events in each of the two modes),
+   random contract-conforming streams with plane widths below and above 48
+   KB of shared memory, and paired (setup-shaped) and mixed streams at
+   each kernel's widths (batch sp 128, 1280, 10240; row-block sp 128,
+   1280, 3584; eager s_pad 1024, 2048, 10240); CUDA-event timings;
 4. main path: synthetic DB (write_synth_db_dir) + ONT-like reads, then the
    port's ``mapDirectly`` (torch engine on CUDA) and ``classify`` (EM rounds
    in float64 on CUDA);
@@ -34,8 +35,9 @@ Phases (each prints its wall seconds; any failure exits non-zero):
    more with a synchronise after each phase, and prints each phase's
    seconds;
 7. sweep_variants: the sweep bench (profiling/sweep_bench.py) drives the
-   row-block, eager and ablation kernels at the JAX engine's slab shapes;
-   each is then held bit for bit against its plain version;
+   row-block, eager and ablation kernels at the JAX engine's slab shapes,
+   with random and setup-shaped streams; each is then held bit for bit
+   against its plain version on every scenario;
 8. summary: reads/s, classify seconds, peak device memory, then the card
    line, the kernel JSON line and the final JSON line.
 """
@@ -68,6 +70,12 @@ from metamaps_tpu_torch.sim.synth_db import ont_read, write_synth_db_dir
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SAMPLE = 64  # reads checked line by line against the serial oracle
+# paired and mixed streams: each sweep kernel's plane widths, and E2 at each
+STREAM_WIDTHS = {"l2_event_sweep_batch": (128, 1280, 10240),
+                 "l2_event_sweep_rb": (128, 1280, 3584),
+                 "l2_event_sweep": (1024, 2048, 10240)}
+STREAM_E2 = {128: 600, 1024: 900, 1280: 1400, 2048: 1200, 3584: 800,
+             10240: 400}
 EM_FILES = (".EM", ".EM.WIMP", ".EM.reads2Taxon", ".EM.reads2Taxon.krona",
             ".EM.contigCoverage", ".EM.evidenceUnknownSpecies",
             ".EM.lengthAndIdentitiesPerMappingUnit")
@@ -256,13 +264,22 @@ def main(argv=None) -> int:
         setups = engine.l2_slab_setups(chunk[: engine.CHUNK])
         ref = l2_sweep.l2_event_sweep_ref
         batch = l2_sweep.l2_event_sweep_batch
-        errs, slab_ms, slab_modes = [], [], []
+        # the three sweep kernels of one function, each with its plane
+        # width at a candidate set's sp
+        sweeps = ((batch, lambda sp: sp),
+                  (l2_sweep.l2_event_sweep_rb, lambda sp: sp),
+                  (l2_sweep.l2_event_sweep, lambda sp: -(-sp // 1024) * 1024))
+        errs = {fn.__name__: [] for fn, _ in sweeps}
+        slab_ms = {fn.__name__: [] for fn, _ in sweeps}
+        slab_modes = []
         for i, (st, sp) in enumerate(setups):
             arrs = [t.contiguous() for t in (st.meta, st.qrank, st.signinq,
                                              st.rows)]
-            errs.append(compare(f"main-path slab {i}", batch, ref, arrs, sp))
-            slab_ms.append(sweep_bench.time_ms(lambda: batch(*arrs, sp), dev,
-                                               5))
+            for fn, width in sweeps:
+                errs[fn.__name__].append(compare(
+                    f"main-path slab {i}", fn, ref, arrs, width(sp)))
+                slab_ms[fn.__name__].append(sweep_bench.time_ms(
+                    lambda: fn(*arrs, width(sp)), dev, 5))
             inc, rec = sweep_bench.sweep_routes(
                 *(a.cpu().numpy() for a in arrs[:3]), sp)
             modes = dict(candidates=len(inc),
@@ -272,42 +289,44 @@ def main(argv=None) -> int:
                          recount_events=int(rec.sum()))
             slab_modes.append(modes)
             log(f"main-path slab {i}: N={len(inc)} E2={arrs[1].shape[1]} "
-                f"sp={sp}; batch kernel {slab_ms[-1]:.4f} ms; modes "
-                + json.dumps(modes))
+                f"sp={sp}; ms " + json.dumps(
+                    {k: v[-1] for k, v in slab_ms.items()})
+                + "; modes " + json.dumps(modes))
             if i == 0:
                 slab0 = (arrs, sp)
-                # the same function through the two other sweep kernels
-                compare("main-path slab 0", l2_sweep.l2_event_sweep_rb, ref,
-                        arrs, sp)
-                compare("main-path slab 0", l2_sweep.l2_event_sweep, ref,
-                        arrs, -(-sp // 1024) * 1024)
-        log(f"batch kernel over the {len(slab_ms)} main-path slabs: "
-            f"{sum(slab_ms):.4f} ms; candidates with recount events "
+        log(f"sweep kernels over the {len(setups)} main-path slabs, ms: "
+            + json.dumps({k: sum(v) for k, v in slab_ms.items()})
+            + f"; candidates with recount events "
             f"{sum(m['with_recount'] for m in slab_modes)} of "
             f"{sum(m['candidates'] for m in slab_modes)}")
         for sp_r, e2 in ((1152, 900), (10240, 400)):  # 9 KB and 80 KB planes
             arrs = [torch.from_numpy(a).to(dev) for a in
                     l2_sweep.random_event_streams(
                         np.random.default_rng(sp_r), 257, e2, sp_r - 1)]
-            errs.append(compare(f"random sp={sp_r}", batch, ref, arrs, sp_r))
+            errs[batch.__name__].append(
+                compare(f"random sp={sp_r}", batch, ref, arrs, sp_r))
         # setup-shaped streams (incremental mode only) and mixed ones, in
-        # which ranks go negative and recover
-        for flip, kind in ((0.0, "paired"), (0.04, "mixed")):
-            for sp_r, e2 in ((128, 600), (1280, 1400), (10240, 400)):
-                host = l2_sweep.paired_event_streams(
-                    np.random.default_rng(sp_r + 1), 257, e2, sp_r - 1,
-                    flip=flip)
-                inc, rec = sweep_bench.sweep_routes(*host[:3], sp_r)
-                arrs = [torch.from_numpy(a).to(dev) for a in host]
-                errs.append(compare(
-                    f"{kind} sp={sp_r} (events incremental {int(inc.sum())}, "
-                    f"recount {int(rec.sum())})", batch, ref, arrs, sp_r))
+        # which ranks go negative and recover, at each kernel's widths
+        for fn, _ in sweeps:
+            for flip, kind in ((0.0, "paired"), (0.04, "mixed")):
+                for sp_r in STREAM_WIDTHS[fn.__name__]:
+                    host = l2_sweep.paired_event_streams(
+                        np.random.default_rng(sp_r + 1), 257,
+                        STREAM_E2[sp_r], sp_r - 1, flip=flip)
+                    inc, rec = sweep_bench.sweep_routes(*host[:3], sp_r)
+                    arrs = [torch.from_numpy(a).to(dev) for a in host]
+                    errs[fn.__name__].append(compare(
+                        f"{kind} width={sp_r} (events incremental "
+                        f"{int(inc.sum())}, recount {int(rec.sum())})", fn,
+                        ref, arrs, sp_r))
         arrs, sp = slab0
         batch_row = kernel_entry(
             "l2_event_sweep_batch", "metamaps_tpu_torch/csrc/l2_sweep.cu",
             "metamaps_tpu/ops/l2_pallas.py:116", arrs, (sp,), clock_mhz,
-            max(errs), batch, ref, sp=sp, ms_by_slab=slab_ms,
-            ms_all_slabs=sum(slab_ms), modes_by_slab=slab_modes)
+            max(errs[batch.__name__]), batch, ref, sp=sp,
+            ms_by_slab=slab_ms[batch.__name__],
+            ms_all_slabs=sum(slab_ms[batch.__name__]),
+            modes_by_slab=slab_modes)
 
     # ---- 4. main path -----------------------------------------------------
     torch.cuda.reset_peak_memory_stats(dev)
@@ -434,34 +453,44 @@ def main(argv=None) -> int:
     for fn in counters:
         fn.launches = 0
     with Phase("sweep_variants", times):
-        bench = sweep_bench.run(dev, reps=10, log=lambda m: log(f"bench {m}"))
+        bench = sweep_bench.run(dev, reps=10, log=lambda m: log(f"bench {m}"),
+                                clock_mhz=clock_mhz)
         bench_launches = {fn.__name__: fn.launches for fn in counters}
         log(f"sweep bench launches: {bench_launches}")
         for fn in counters[1:]:
             if fn.launches <= 0:
                 raise AssertionError(f"{fn.__name__} never ran in the bench")
         by_name = {row["scenario"]: row for row in bench["scenarios"]}
-        full, sparse = by_name["full"], by_name["sparse"]
+        full = by_name["full"]
         sp = full["sp"]
-        errs = {}
-        for fn, width in ((l2_sweep.l2_event_sweep_rb, sp),
-                          (l2_sweep.l2_event_sweep, full["s_pad"])):
-            errs[fn.__name__] = max(
-                compare(f"bench {row['scenario']}", fn, ref, row["inputs"],
-                        width) for row in (full, sparse))
+        for row in bench["scenarios"]:  # every scenario, both kernels
+            for fn, width in ((l2_sweep.l2_event_sweep_rb, row["sp"]),
+                              (l2_sweep.l2_event_sweep, row["s_pad"])):
+                errs[fn.__name__].append(compare(
+                    f"bench {row['scenario']}", fn, ref, row["inputs"],
+                    width))
+        paired_ms = {
+            fn: {row["scenario"]: row["ms"][key] for row in bench["scenarios"]
+                 if row["scenario"].startswith("paired")}
+            for fn, key in (("l2_event_sweep_rb", "rb"),
+                            ("l2_event_sweep", "eager"))}
         variant_rows = [
             kernel_entry("l2_event_sweep_rb",
                          "metamaps_tpu_torch/csrc/l2_sweep_rb.cu",
                          "metamaps_tpu/ops/l2_pallas.py:233", full["inputs"],
-                         (sp,), clock_mhz, errs["l2_event_sweep_rb"],
+                         (sp,), clock_mhz, max(errs["l2_event_sweep_rb"]),
                          l2_sweep.l2_event_sweep_rb, ref, sp=sp,
-                         scenario="full"),
+                         scenario="full",
+                         ms_by_slab=slab_ms["l2_event_sweep_rb"],
+                         paired_ms=paired_ms["l2_event_sweep_rb"]),
             kernel_entry("l2_event_sweep",
                          "metamaps_tpu_torch/csrc/l2_sweep_eager.cu",
                          "metamaps_tpu/ops/l2_pallas.py:41", full["inputs"],
                          (full["s_pad"],), clock_mhz,
-                         errs["l2_event_sweep"], l2_sweep.l2_event_sweep, ref,
-                         sp=full["s_pad"], scenario="full"),
+                         max(errs["l2_event_sweep"]), l2_sweep.l2_event_sweep,
+                         ref, sp=full["s_pad"], scenario="full",
+                         ms_by_slab=slab_ms["l2_event_sweep"],
+                         paired_ms=paired_ms["l2_event_sweep"]),
         ]
         parts_fn = l2_sweep_parts.l2_sweep_parts
         parts_ref = l2_sweep_parts.l2_sweep_parts_ref

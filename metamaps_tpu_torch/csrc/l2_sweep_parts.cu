@@ -34,6 +34,34 @@ namespace {
 
 constexpr int TPU_BLK = 128;  // events per TPU grid step
 
+// Sum of every thread's `cnt`, valid in thread 0: a warp-shuffle reduction,
+// then thread 0 adds the warps' sums from `red_buf` ([32] ints in shared
+// memory) behind one __syncthreads. Every thread of the block must call it;
+// callers alternate between two buffers from one event to the next, so the
+// next event's writes cannot overtake thread 0's reads.
+__device__ __forceinline__ int block_sum(int cnt, int* red_buf) {
+  for (int off = 16; off > 0; off >>= 1) {
+    cnt += __shfl_down_sync(0xffffffffu, cnt, off);
+  }
+  if ((threadIdx.x & 31) == 0) red_buf[threadIdx.x >> 5] = cnt;
+  __syncthreads();
+  int total = 0;
+  if (threadIdx.x == 0) {
+    const int nwarps = (blockDim.x + 31) >> 5;
+    for (int w = 0; w < nwarps; ++w) total += red_buf[w];
+  }
+  return total;
+}
+
+// Threads of a block that sweeps one candidate with planes of width sp.
+inline int block_threads(int sp) { return sp <= 1024 ? 128 : 256; }
+
+// Dynamic shared memory of such a block, in bytes: two planes of sp int32,
+// three event tiles of block_threads(sp), and two reduction buffers of 32.
+inline long long block_smem_bytes(int sp) {
+  return (2LL * sp + 3LL * block_threads(sp) + 64) * (long long)sizeof(int);
+}
+
 template <bool C, bool M, bool S, bool F>
 __global__ void l2_sweep_parts_kernel(const int* __restrict__ meta,
                                       const int* __restrict__ qrank,
@@ -108,7 +136,7 @@ __global__ void l2_sweep_parts_kernel(const int* __restrict__ meta,
         if (S) cnt += (m_plane[j] > 0) && (j + c < s);
       }
       if (S) {
-        const int total = l2sweep::block_sum(cnt, red + (e & 1) * 32);
+        const int total = block_sum(cnt, red + (e & 1) * 32);
         if (tid == 0) {
           shared = total;
           acc = max(acc, shared);
@@ -148,7 +176,7 @@ extern "C" {
 
 // Dynamic shared memory of one block, in bytes.
 long long l2_sweep_parts_smem_bytes(int sp) {
-  return l2sweep::block_smem_bytes(sp);
+  return block_smem_bytes(sp);
 }
 
 // Launches the kernel of `mode_bits` on `stream` without synchronising;
@@ -163,7 +191,7 @@ int l2_sweep_parts_launch(const void* meta, const void* qrank,
   const long long smem = l2_sweep_parts_smem_bytes(sp);
   const int err = l2sweep::allow_smem((const void*)kernel, smem);
   if (err != 0) return err;
-  kernel<<<n, l2sweep::block_threads(sp), (size_t)smem, (cudaStream_t)stream>>>(
+  kernel<<<n, block_threads(sp), (size_t)smem, (cudaStream_t)stream>>>(
       (const int*)meta, (const int*)qrank, (const int*)signinq,
       (const int*)rows, (int*)out, (int*)fold_out, e2, sp);
   return (int)cudaGetLastError();

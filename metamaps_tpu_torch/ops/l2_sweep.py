@@ -8,9 +8,11 @@ kernel in ``metamaps_tpu/ops/l2_pallas.py``; their sources under
   / ``_batch_sweep_kernel``, the mapping path's sweep; one warp per
   candidate, O(1) work per event while the count has its prefix form;
 - :func:`l2_event_sweep_rb` (``csrc/l2_sweep_rb.cu``): ``l2_event_sweep_rb``
-  / ``_rb_sweep_kernel``; one warp per candidate, 8 to a block;
+  / ``_rb_sweep_kernel``; the same chain, 8 candidates to a block, int16
+  planes;
 - :func:`l2_event_sweep` (``csrc/l2_sweep_eager.cu``): ``l2_event_sweep`` /
-  ``_sweep_kernel``, which scores each segment eagerly after its event.
+  ``_sweep_kernel``, which scores each segment eagerly after its event; one
+  block per candidate, the chain on one lane, the recount over the block.
 
 Each wrapper takes the plain version, :func:`l2_event_sweep_ref`, only for
 CPU tensors; for CUDA tensors it launches its kernel or raises, and counts
@@ -42,6 +44,7 @@ HEADERS = ("l2_sweep_common.cuh",)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC"]
 SMEM_LIMIT = 227 * 1024  # dynamic shared memory one Hopper block may use
+INT16_MAX_E2 = 2**15 - 1  # events per candidate that int16 rank planes hold
 _P, _I = ctypes.c_void_p, ctypes.c_int
 #: argument types of each source's ``<name>_launch``
 LAUNCH_ARGS = {
@@ -174,11 +177,16 @@ def check_sweep_args(meta, qrank, signinq, rows, sp: int):
         raise ValueError(f"unsupported device {meta.device}")
 
 
-def _sweep(wrapper, name: str, meta, qrank, signinq, rows, sp: int):
+def _sweep(wrapper, name: str, meta, qrank, signinq, rows, sp: int,
+           max_e2: int = None):
     """Launch the sweep kernel ``name`` on CUDA tensors (checked) and count
-    the launch on ``wrapper``; N = 0 launches nothing."""
+    the launch on ``wrapper``; N = 0 launches nothing. A kernel whose planes
+    hold at most ``max_e2`` events raises ``ValueError`` above that."""
     smem_bytes(name, sp)
     n, e2 = qrank.shape
+    if max_e2 is not None and e2 > max_e2:
+        raise ValueError(f"E2={e2} events per candidate: {name} keeps int16 "
+                         f"rank planes, which hold at most {max_e2}")
     out = torch.empty((n, 4), dtype=torch.int32, device=meta.device)
     if n == 0:
         return out
@@ -206,27 +214,29 @@ def l2_event_sweep_batch(meta, qrank, signinq, rows, sp: int) -> torch.Tensor:
 
 def l2_event_sweep_rb(meta, qrank, signinq, rows, sp: int) -> torch.Tensor:
     """The same function as :func:`l2_event_sweep_batch`, one warp per
-    candidate (``csrc/l2_sweep_rb.cu``). Its planes take 64 * sp bytes of
-    shared memory per block of 8 candidates, so ``sp`` is at most 3584;
-    above that it raises ``ValueError``."""
+    candidate, 8 to a block (``csrc/l2_sweep_rb.cu``). Its int16 planes and
+    event tiles take 32 * sp + 16384 bytes of shared memory per block, so
+    ``sp`` is at most 6656, and E2 at most 32767; on CUDA tensors it raises
+    ``ValueError`` above either."""
     check_sweep_args(meta, qrank, signinq, rows, sp)
     if meta.device.type == "cpu":
         return l2_event_sweep_ref(meta, qrank, signinq, rows, sp)
     return _sweep(l2_event_sweep_rb, "l2_sweep_rb", meta, qrank, signinq,
-                  rows, sp)
+                  rows, sp, max_e2=INT16_MAX_E2)
 
 
 def l2_event_sweep(meta, qrank, signinq, rows, s_pad: int) -> torch.Tensor:
     """The same function as :func:`l2_event_sweep_batch`, evaluated eagerly
     after each event (``csrc/l2_sweep_eager.cu``). ``s_pad``, the plane
-    width, must be a multiple of 1024, as in the JAX kernel."""
+    width, must be a multiple of 1024, as in the JAX kernel; on CUDA tensors
+    E2 is at most 32767 (int16 planes), or it raises ``ValueError``."""
     if s_pad <= 0 or s_pad % 1024:
         raise ValueError(f"s_pad must be a positive multiple of 1024, got {s_pad}")
     check_sweep_args(meta, qrank, signinq, rows, s_pad)
     if meta.device.type == "cpu":
         return l2_event_sweep_ref(meta, qrank, signinq, rows, s_pad)
     return _sweep(l2_event_sweep, "l2_sweep_eager", meta, qrank, signinq,
-                  rows, s_pad)
+                  rows, s_pad, max_e2=INT16_MAX_E2)
 
 
 # kernel launches since the last reset

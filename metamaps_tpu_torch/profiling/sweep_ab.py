@@ -1,16 +1,21 @@
-"""Two builds of the batch sweep kernel side by side on the same inputs.
+"""Two builds of a sweep kernel side by side on the same inputs.
 
 Builds the kernel library from the sources in ``--base`` (a directory
 holding a copy of ``metamaps_tpu_torch/csrc``, say of the parent commit
-unpacked with ``git archive``) and from the package's own ``csrc``, then on
-each input checks that both give the same output (and the plain version's,
-on the first slab) and times each with CUDA events in the order base, new,
-new, base. The inputs are the main-path slabs of ``chip_smoke.py``'s
-configuration (its synthetic database, reads and seed; the first read
-chunk's L2 slabs) and setup-shaped and mixed streams
-(``paired_event_streams``) of 2048 candidates at sp 1280.
+unpacked with ``git archive``) and from the package's own ``csrc``. For
+each kernel named by ``--kernel`` (``batch``: ``l2_event_sweep_batch``,
+``rb``: ``l2_event_sweep_rb``, ``eager``: ``l2_event_sweep`` at s_pad the
+multiple of 1024 above sp), on each input, it checks that both builds give
+the same output (and the plain version's, on the first slab) and times
+each with CUDA events in the order base, new, new, base. The inputs are
+the main-path slabs of ``chip_smoke.py``'s configuration (its synthetic
+database, reads and seed; the first read chunk's L2 slabs), setup-shaped
+and mixed streams (``paired_event_streams``) of 2048 candidates at sp 1280,
+and the sweep bench's scenarios ``full`` (random signs), ``paired-full``,
+``paired-big`` and ``mixed``.
 
     python -m metamaps_tpu_torch.profiling.sweep_ab --base OLD/csrc
+    python -m metamaps_tpu_torch.profiling.sweep_ab --base OLD/csrc --kernel rb eager
 """
 from __future__ import annotations
 
@@ -31,7 +36,15 @@ from ..engine.mapper_torch import TorchMapperEngine
 from ..io.fasta import read_sequences
 from ..ops import l2_sweep
 from ..sim.synth_db import ont_read, write_synth_db_dir
-from .sweep_bench import time_ms
+from .sweep_bench import bench_inputs, time_ms
+
+#: each kernel's wrapper and its plane width at a candidate set's sp
+KERNELS = {
+    "batch": (l2_sweep.l2_event_sweep_batch, lambda sp: sp),
+    "rb": (l2_sweep.l2_event_sweep_rb, lambda sp: sp),
+    "eager": (l2_sweep.l2_event_sweep, lambda sp: -(-sp // 1024) * 1024),
+}
+BENCH_CASES = ("full", "paired-full", "paired-big", "mixed")
 
 
 def library(csrc: Path):
@@ -77,6 +90,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--base", required=True,
                     help="directory with the other build's csrc sources")
+    ap.add_argument("--kernel", nargs="+", choices=sorted(KERNELS),
+                    default=["batch"], help="the kernels to compare")
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--genome-len", type=int, default=3_000_000)
@@ -101,34 +116,42 @@ def main(argv=None) -> int:
                                              4000, 1279, flip=flip)
         cases.append((f"{kind} sp=1280",
                       [torch.from_numpy(a).to(dev) for a in host], 1280))
+    for name, host, sp, _ in bench_inputs(only=BENCH_CASES):
+        cases.append((f"bench {name}",
+                      [torch.from_numpy(a).to(dev) for a in host], sp))
 
-    def call(name, arrs, sp):
-        saved, l2_sweep._lib = l2_sweep._lib, libs[name]
+    def call(build, kernel, arrs, sp):
+        fn, width = KERNELS[kernel]
+        saved, l2_sweep._lib = l2_sweep._lib, libs[build]
         try:
-            return l2_sweep.l2_event_sweep_batch(*arrs, sp)
+            return fn(*arrs, width(sp))
         finally:
             l2_sweep._lib = saved
 
     results = {}
-    for label, arrs, sp in cases:
-        outs = {name: call(name, arrs, sp) for name in libs}
-        torch.cuda.synchronize()
-        same = torch.equal(outs["base"], outs["new"])
-        if label == "slab 0":
-            same = same and torch.equal(
-                outs["new"], l2_sweep.l2_event_sweep_ref(*arrs, sp))
-        ms = {}
-        for name in ("base", "new", "new", "base"):
-            ms.setdefault(name, []).append(time_ms(
-                lambda: call(name, arrs, sp), dev, args.reps))
-        n_ev = arrs[0][:, 3].clamp(0, arrs[1].shape[1])
-        results[label] = dict(
-            equal=same, ms=ms, N=int(arrs[1].shape[0]),
-            E2=int(arrs[1].shape[1]), sp=sp, max_n_ev=int(n_ev.max()),
-            sum_n_ev=int(n_ev.sum()))
-        print(label, json.dumps(results[label]), flush=True)
+    for kernel in args.kernel:
+        results[kernel] = {}
+        for label, arrs, sp in cases:
+            width = KERNELS[kernel][1](sp)
+            outs = {b: call(b, kernel, arrs, sp) for b in libs}
+            torch.cuda.synchronize()
+            same = torch.equal(outs["base"], outs["new"])
+            if label == "slab 0":
+                same = same and torch.equal(
+                    outs["new"], l2_sweep.l2_event_sweep_ref(*arrs, width))
+            ms = {}
+            for b in ("base", "new", "new", "base"):
+                ms.setdefault(b, []).append(time_ms(
+                    lambda: call(b, kernel, arrs, sp), dev, args.reps))
+            n_ev = arrs[0][:, 3].clamp(0, arrs[1].shape[1])
+            row = results[kernel][label] = dict(
+                equal=same, ms=ms, N=int(arrs[1].shape[0]),
+                E2=int(arrs[1].shape[1]), width=width,
+                max_n_ev=int(n_ev.max()), sum_n_ev=int(n_ev.sum()))
+            print(kernel, label, json.dumps(row), flush=True)
     print(json.dumps(results))
-    return 0 if all(r["equal"] for r in results.values()) else 1
+    return 0 if all(r["equal"] for rows in results.values()
+                    for r in rows.values()) else 1
 
 
 if __name__ == "__main__":

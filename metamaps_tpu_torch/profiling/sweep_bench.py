@@ -5,9 +5,16 @@ and ``profiling/pallas_sweep_parts.py`` (the sweep's ablation):
 
 - six scenarios with the generator and seed of ``sweep_rb_bench.py``
   (K 112 / 224 candidates, R 1792, SP 1152, 112 / 56 / 8 / 224 real
-  candidates, events at 100 % or 40 % of E2 = 2 R): ``l2_event_sweep_batch``,
-  ``l2_event_sweep_rb`` and ``l2_event_sweep`` (planes of ``s_pad`` 2048,
-  the multiple of 1024 above SP) are timed and must give the same outputs;
+  candidates, events at 100 % or 40 % of E2 = 2 R), whose random signs keep
+  the kernels mostly in their recount mode, and three setup-shaped ones
+  (``ops/l2_sweep.py:paired_event_streams`` at K 112 / 224, E2 3584, SP
+  1152): ``paired-full`` and ``paired-big``, where every event takes the
+  O(1) mode, and ``mixed``, where 4 % of the ref-only occurrences remove
+  before they add. ``l2_event_sweep_batch``, ``l2_event_sweep_rb`` and
+  ``l2_event_sweep`` (planes of ``s_pad`` 2048, the multiple of 1024 above
+  SP) are timed and must give the same outputs; each row reports its
+  events in each mode (:func:`sweep_routes`) and the bound the three
+  kernels share on its inputs (:func:`sweep_bound`);
 - the ablation modes ``cms`` and ``cmsf`` at N 56, SP 1152, E2 4480 with
   the ablation script's seed 0, timed; the two must give the same output.
 
@@ -32,6 +39,7 @@ from ..ops.l2_sweep import (
     l2_event_sweep,
     l2_event_sweep_batch,
     l2_event_sweep_rb,
+    paired_event_streams,
 )
 from ..ops.l2_sweep_parts import l2_sweep_parts
 
@@ -46,12 +54,21 @@ SCENARIOS = (
     ("big-half", 224, 1792, 1152, 112, 1.0),
 )
 SCENARIO_SEED = 5
+# setup-shaped scenarios: (name, K candidates, E2, SP, flip), drawn from a
+# generator of their own, so that the six above keep their streams
+PAIRED_SCENARIOS = (
+    ("paired-full", 112, 3584, 1152, 0.0),
+    ("paired-big", 224, 3584, 1152, 0.0),
+    ("mixed", 112, 3584, 1152, 0.04),
+)
+PAIRED_SEED = 6
 EAGER_S_PAD = 2048
 PARTS_SHAPE = (56, 1152, 4480)  # N, SP, E2 of pallas_sweep_parts.py
 PARTS_SEED = 0
 PARTS_MODES = ("cms", "cmsf")
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+SM_CLOCK_MHZ = 1980.0  # H100 SXM's highest SM clock (nvidia-smi clocks.max.sm)
 SMS, INT32_LANES = 132, 64  # H100 SXM: SMs, INT32 lanes per SM
 OPS_PER_PLANE_ELEMENT = 3  # suffix add, one-hot test, count per rank and event
 # an event while the count has its prefix form (csrc/l2_sweep.cu): the lazy
@@ -76,6 +93,24 @@ def scenario_streams(rng, K, R, SP, n_real, ev_frac):
         signinq[i, :ne] = rng.choice([1, -1, 2, -2], ne)
         meta[i] = (900, 0, 500000, ne)
     return meta, qrank, signinq, rows
+
+
+def bench_inputs(scenarios=SCENARIOS, paired=PAIRED_SCENARIOS, only=None):
+    """The scenarios' streams in order, as numpy int32 arrays: (name,
+    [meta, qrank, signinq, rows], SP, the scenario's parameters). Each
+    generator draws every scenario of its list; ``only`` (names) picks
+    which are returned, with the same streams as in a full run."""
+    rng = np.random.default_rng(SCENARIO_SEED)
+    for name, K, R, SP, n_real, ev_frac in scenarios:
+        host = list(scenario_streams(rng, K, R, SP, n_real, ev_frac))
+        if only is None or name in only:
+            yield (name, host, SP,
+                   dict(K=K, E2=2 * R, real=n_real, ev_frac=ev_frac))
+    rng = np.random.default_rng(PAIRED_SEED)
+    for name, K, E2, SP, flip in paired:
+        host = list(paired_event_streams(rng, K, E2, SP - 1, flip=flip))
+        if only is None or name in only:
+            yield name, host, SP, dict(K=K, E2=E2, flip=flip)
 
 
 def parts_streams(N=PARTS_SHAPE[0], SP=PARTS_SHAPE[1], E2=PARTS_SHAPE[2],
@@ -194,17 +229,17 @@ def sweep_bound(meta, qrank, signinq, sm_clock_mhz: float,
         recount_ms=max(bytes_ms, recount_ops / rate * 1e3))
 
 
-def run(device, reps: int = 10, scenarios=SCENARIOS, parts_shape=PARTS_SHAPE,
-        log=print) -> dict:
-    """Time and cross-check the sweep kernels on ``device``. Returns the
-    scenarios' results and the ablation's, each with its inputs (as
-    tensors on ``device``) for callers that compare further."""
+def run(device, reps: int = 10, scenarios=SCENARIOS,
+        paired=PAIRED_SCENARIOS, parts_shape=PARTS_SHAPE, log=print,
+        clock_mhz: float = SM_CLOCK_MHZ) -> dict:
+    """Time and cross-check the sweep kernels on ``device``; the bounds
+    take the SM clock ``clock_mhz``. Returns the scenarios' results and the
+    ablation's, each with its inputs (as tensors on ``device``) for callers
+    that compare further."""
     device = torch.device(device)
-    rng = np.random.default_rng(SCENARIO_SEED)
     results = {"scenarios": [], "parts": []}
-    for name, K, R, SP, n_real, ev_frac in scenarios:
-        arrs = [torch.from_numpy(a).to(device) for a in
-                scenario_streams(rng, K, R, SP, n_real, ev_frac)]
+    for name, host, SP, params in bench_inputs(scenarios, paired):
+        arrs = [torch.from_numpy(a).to(device) for a in host]
         variants = {
             "batch": lambda: l2_event_sweep_batch(*arrs, SP),
             "rb": lambda: l2_event_sweep_rb(*arrs, SP),
@@ -213,9 +248,12 @@ def run(device, reps: int = 10, scenarios=SCENARIOS, parts_shape=PARTS_SHAPE,
         outs = {k: fn() for k, fn in variants.items()}
         equal = all(torch.equal(outs["batch"], o) for o in outs.values())
         ms = {k: time_ms(fn, device, reps) for k, fn in variants.items()}
-        row = dict(scenario=name, K=K, E2=2 * R, sp=SP, s_pad=EAGER_S_PAD,
-                   real=n_real, ev_frac=ev_frac, ms=ms, equal=equal,
-                   scored=int((outs["batch"][:, 0] > 0).sum()))
+        bound_ms, bound_by, counts = sweep_bound(*host[:3], clock_mhz, sp=SP)
+        row = dict(scenario=name, sp=SP, s_pad=EAGER_S_PAD, **params, ms=ms,
+                   equal=equal, scored=int((outs["batch"][:, 0] > 0).sum()),
+                   incremental_events=counts["incremental_events"],
+                   recount_events=counts["recount_events"],
+                   bound_ms=bound_ms, bound_by=bound_by)
         log(json.dumps(row))
         row.update(inputs=arrs, out=outs["batch"])
         results["scenarios"].append(row)

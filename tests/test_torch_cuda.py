@@ -169,6 +169,42 @@ def test_eager_kernel_equals_plain(cuda, s_pad, e2, seed):
     assert torch.equal(got.cpu(), l2_event_sweep_ref(*cpu, s_pad))
 
 
+@pytest.mark.parametrize("flip", [0.0, 0.04], ids=["paired", "mixed"])
+@pytest.mark.parametrize("name,width,e2,seed", [
+    ("rb", 128, 300, 10), ("rb", 1280, 700, 11), ("rb", 3584, 400, 12),
+    ("eager", 1024, 300, 13), ("eager", 2048, 700, 14),
+    ("eager", 10240, 257, 15)])
+def test_rb_and_eager_equal_plain_on_paired_streams(cuda, name, width, e2,
+                                                    seed, flip):
+    """Setup-shaped streams (lane 0's O(1) chain only) and mixed ones, in
+    which ranks go negative and recover (the warp's or the block's recount,
+    and back). 67 candidates: rb's last block of 8 is partial; eager's
+    blocks take 512 threads."""
+    fn = {"rb": l2_event_sweep_rb, "eager": l2_event_sweep}[name]
+    arrs = paired_event_streams(np.random.default_rng(seed), 67, e2,
+                                width - 1, flip=flip)
+    arrs[0][::5, 2] = 2**31 - 1  # row_hi + 1 must not overflow (eager)
+    cpu = [torch.from_numpy(a) for a in arrs]
+    before = fn.launches
+    got = fn(*[a.to(cuda) for a in cpu], width)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert torch.equal(got.cpu(), l2_event_sweep_ref(*cpu, width))
+
+
+@pytest.mark.parametrize("n", [600, 1200, 2100])
+def test_eager_kernel_block_sizes(cuda, n):
+    """Enough candidates that eager's blocks shrink to reside at once (256
+    threads at 600, 128 at 1200 and 2100 on 132 SMs), on mixed streams:
+    the chain and the block's recount at each size."""
+    arrs = paired_event_streams(np.random.default_rng(n), n, 200, 2047,
+                                flip=0.04)
+    cpu = [torch.from_numpy(a) for a in arrs]
+    got = l2_event_sweep(*[a.to(cuda) for a in cpu], 2048)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), l2_event_sweep_ref(*cpu, 2048))
+
+
 @pytest.mark.parametrize("mode", ["cms", "cmsf", "cmf", "s"])
 def test_parts_kernel_equals_plain(cuda, mode):
     """Output and fold state, at a small ablation shape (E2 = 3 * 128 + 45:
@@ -186,10 +222,18 @@ def test_parts_kernel_equals_plain(cuda, mode):
 def test_variant_wrappers_reject_bad_widths(cuda):
     arrs = [torch.from_numpy(a).to(cuda) for a in
             random_event_streams(np.random.default_rng(5), 4, 16, 100)]
+    l2_event_sweep_rb(*arrs, 6656)  # 32 * 6656 + 16384 B = 227 KB
     with pytest.raises(ValueError, match="shared memory"):
-        l2_event_sweep_rb(*arrs, 3712)  # 64 * 3712 B > 227 KB
+        l2_event_sweep_rb(*arrs, 6784)  # 32 * 6784 + 16384 B > 227 KB
     with pytest.raises(ValueError, match="multiple of 1024"):
         l2_event_sweep(*arrs, 1152)
+    # int16 planes: at most 32767 events per candidate
+    wide = [arrs[0]] + [torch.nn.functional.pad(a, (0, 32768 - 16))
+                        for a in arrs[1:]]
+    for fn, width in ((l2_event_sweep_rb, 128), (l2_event_sweep, 1024)):
+        with pytest.raises(ValueError, match="int16"):
+            fn(*wide, width)
+    torch.cuda.synchronize()
     with pytest.raises(ValueError, match="mode letters"):
         l2_sweep_parts(*arrs, 1152, "cmq")
     with pytest.raises(TypeError):

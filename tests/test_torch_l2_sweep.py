@@ -277,9 +277,16 @@ def test_sweep_bench_runs_on_cpu():
 
     res = sweep_bench.run("cpu", reps=1, log=lambda m: None,
                           scenarios=(("tiny", 12, 96, 128, 9, 0.5),),
+                          paired=(("tiny-paired", 10, 96, 128, 0.0),
+                                  ("tiny-mixed", 10, 96, 128, 0.3)),
                           parts_shape=(4, 256, 300))
     row = res["scenarios"][0]
     assert row["equal"] and row["scored"] > 0 and row["E2"] == 192
+    paired, mixed = res["scenarios"][1:]
+    assert paired["equal"] and mixed["equal"] and paired["E2"] == 96
+    # events per mode: setup-shaped streams never leave incremental mode
+    assert paired["recount_events"] == 0 < paired["incremental_events"]
+    assert mixed["recount_events"] > 0 and row["recount_events"] > 0
     assert [p["mode"] for p in res["parts"]] == ["cms", "cmsf"]
     # the bound counts the swept events and, per candidate, the ranks up to
     # its highest in-query rank among them: 1280 and 640 here (the rank
