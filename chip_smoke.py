@@ -36,8 +36,10 @@ Phases (each prints its wall seconds; any failure exits non-zero):
    seconds;
 7. sweep_variants: the sweep bench (profiling/sweep_bench.py) drives the
    row-block, eager and ablation kernels at the JAX engine's slab shapes,
-   with random and setup-shaped streams; each is then held bit for bit
-   against its plain version on every scenario;
+   with random and setup-shaped streams, and the ablation in its modes c,
+   cm, cms and cmsf; each is then held bit for bit against its plain
+   version on every scenario and in every mode (the ablation's output,
+   fold state and planes);
 8. summary: reads/s, classify seconds, peak device memory, then the card
    line, the kernel JSON line and the final JSON line.
 """
@@ -136,25 +138,26 @@ def compare(label, fn, ref, arrs, *width):
 
 
 def kernel_entry(name, source, replaces, arrs, width, clock_mhz, err, fn,
-                 ref, swept=None, outputs=1, sp=None, **extra):
+                 ref, sp=None, bound=None, **extra):
     """One row of the kernels line: the kernel's and the plain version's
     CUDA-event times on ``arrs`` and the bound on the same inputs, from the
-    work this data needs (``swept``, ``outputs`` and ``sp`` as in
-    ``sweep_bench.sweep_bound``; with ``sp`` the row also carries the
-    bound with every event recounted and the events in each mode)."""
+    work this data needs: ``bound`` (ms, bound_by, counts) where given,
+    else ``sweep_bench.sweep_bound`` with ``sp``, and then the row also
+    carries the bound with every event recounted and the events in each
+    mode."""
     ms = sweep_bench.time_ms(lambda: fn(*arrs, *width), arrs[0].device, 5)
     plain_ms = sweep_bench.time_ms(lambda: ref(*arrs, *width),
                                    arrs[0].device, 1)
-    host = [a.cpu().numpy() for a in arrs]
-    bound_ms, bound_by, counts = sweep_bench.sweep_bound(
-        host[0], host[1], host[2], clock_mhz, swept=swept, outputs=outputs,
-        sp=sp)
+    if bound is None:
+        host = [a.cpu().numpy() for a in arrs]
+        bound = sweep_bench.sweep_bound(host[0], host[1], host[2], clock_mhz,
+                                        sp=sp)
+        extra.update(recount_bound_ms=bound[2]["recount_ms"],
+                     incremental_events=bound[2]["incremental_events"],
+                     recount_events=bound[2]["recount_events"])
+    bound_ms, bound_by, counts = bound
     log(f"{name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
         f"{bound_ms:.4f} ms ({bound_by}; {counts})")
-    if sp is not None:
-        extra.update(recount_bound_ms=counts["recount_ms"],
-                     incremental_events=counts["incremental_events"],
-                     recount_events=counts["recount_events"])
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
@@ -494,25 +497,31 @@ def main(argv=None) -> int:
         ]
         parts_fn = l2_sweep_parts.l2_sweep_parts
         parts_ref = l2_sweep_parts.l2_sweep_parts_ref
-        for row in bench["parts"]:
+        parts_err = 0
+        for row in bench["parts"]:  # every mode the bench times
             arrs, mode, sp_p = row["inputs"], row["mode"], row["sp"]
             got = parts_fn(*arrs, sp_p, mode)
             want = parts_ref(*arrs, sp_p, mode)
             torch.cuda.synchronize()
             err = max(int((g.long() - w.long()).abs().max())
-                      for g, w in zip(got, want))
+                      for g, w in zip(got, want, strict=True))
             log(f"l2_sweep_parts vs plain, mode {mode}: max_abs_err={err} "
-                "(output and fold state)")
+                "(output, fold state and planes)")
             if err or not all(map(torch.equal, got, want)):
                 raise AssertionError(f"l2_sweep_parts differs from plain "
                                      f"in mode {mode}")
+            parts_err = max(parts_err, err)
         variant_rows.append(kernel_entry(
             "l2_sweep_parts", "metamaps_tpu_torch/csrc/l2_sweep_parts.cu",
             "profiling/pallas_sweep_parts.py:30", arrs, (sp_p, "cmsf"),
-            clock_mhz, err, parts_fn, parts_ref,
-            swept=arrs[1].shape[1] // l2_sweep_parts.TPU_BLK
-            * l2_sweep_parts.TPU_BLK, outputs=2, mode="cmsf",
-            ms_by_mode={r["mode"]: r["ms"] for r in bench["parts"]}))
+            clock_mhz, parts_err, parts_fn, parts_ref,
+            bound=sweep_bench.parts_bound([a.cpu().numpy() for a in arrs],
+                                          sp_p, "cmsf", clock_mhz),
+            mode="cmsf",
+            config=l2_sweep_parts.parts_config(arrs[1].shape[0], sp_p),
+            ms_by_mode={r["mode"]: r["ms"] for r in bench["parts"]},
+            bound_ms_by_mode={r["mode"]: r["bound_ms"]
+                              for r in bench["parts"]}))
         for row in variant_rows:
             row["launches"] = bench_launches[row["name"]]
         batch_row["launches"] = launches

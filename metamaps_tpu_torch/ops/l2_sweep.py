@@ -51,9 +51,11 @@ LAUNCH_ARGS = {
     "l2_sweep": [_P] * 5 + [_I] * 3 + [_P],  # meta..out, n, e2, sp, stream
     "l2_sweep_rb": [_P] * 5 + [_I] * 3 + [_P],
     "l2_sweep_eager": [_P] * 5 + [_I] * 3 + [_P],
-    # meta..out, fold, n, e2, sp, mode bits, stream
-    "l2_sweep_parts": [_P] * 6 + [_I] * 4 + [_P],
+    # meta..out, fold, planes, n, e2, sp, splits, mode bits, stream
+    "l2_sweep_parts": [_P] * 7 + [_I] * 5 + [_P],
 }
+#: the sources whose blocks' shared memory follows from sp alone
+SMEM_BYTES = ("l2_sweep", "l2_sweep_rb", "l2_sweep_eager")
 
 _lib = None
 build_info: dict = {}  # the library's path; seconds and compiler report of its build
@@ -114,16 +116,20 @@ def _build() -> Path:
 def load_library() -> ctypes.CDLL:
     """Build (once per version of the sources) and load the kernel library.
     Its C interface, for each source name: ``<name>_launch`` (pointers,
-    ints, stream; returns a CUDA error code) and ``<name>_smem_bytes(sp)``;
-    and ``l2_sweep_error_string(code)``."""
+    ints, stream; returns a CUDA error code); ``<name>_smem_bytes(sp)`` for
+    the names in ``SMEM_BYTES``; ``l2_sweep_parts_config(n, sp, splits,
+    int[4])``; and ``l2_sweep_error_string(code)``."""
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(_build()))
         for name, args in LAUNCH_ARGS.items():
             getattr(lib, f"{name}_launch").argtypes = args
             getattr(lib, f"{name}_launch").restype = ctypes.c_int
+        for name in SMEM_BYTES:
             getattr(lib, f"{name}_smem_bytes").argtypes = [ctypes.c_int]
             getattr(lib, f"{name}_smem_bytes").restype = ctypes.c_longlong
+        lib.l2_sweep_parts_config.argtypes = [_I, _I, _I, _P]
+        lib.l2_sweep_parts_config.restype = ctypes.c_int
         lib.l2_sweep_error_string.argtypes = [ctypes.c_int]
         lib.l2_sweep_error_string.restype = ctypes.c_char_p
         _lib = lib

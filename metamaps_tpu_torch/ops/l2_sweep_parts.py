@@ -18,10 +18,11 @@ import ctypes
 
 import torch
 
-from .l2_sweep import check_sweep_args, launch, smem_bytes
+from .l2_sweep import check_sweep_args, launch, load_library
 
 MODE_BITS = {"c": 1, "m": 2, "s": 4, "f": 8}
 TPU_BLK = 128  # events per TPU grid step
+MAX_SPLITS = 4  # CTAs (one thread block cluster) per candidate
 
 
 def mode_bits(mode: str) -> int:
@@ -32,31 +33,53 @@ def mode_bits(mode: str) -> int:
     return sum(MODE_BITS[ch] for ch in set(mode))
 
 
-def l2_sweep_parts(meta, qrank, signinq, rows, sp: int, mode: str):
+def parts_config(n: int, sp: int, splits: int = None) -> dict:
+    """The kernel's launch configuration for ``n`` candidates at width
+    ``sp`` on the current card: CTAs per candidate (``splits``, by default
+    clamp(SMs // n, 1, 4)), ranks per thread, threads per CTA and dynamic
+    shared memory per CTA. Raises ``ValueError`` where ``sp`` is too wide
+    for that many CTAs (a CTA holds at most 31 * 32 * 4 ranks)."""
+    cfg = (ctypes.c_int * 4)()
+    if load_library().l2_sweep_parts_config(n, sp, splits or 0, cfg) != 0:
+        raise ValueError(f"sp={sp} is too wide for l2_sweep_parts at "
+                         f"{n} candidates, splits={splits}")
+    return dict(splits=cfg[0], ranks_per_thread=cfg[1], threads=cfg[2],
+                smem=cfg[3])
+
+
+def l2_sweep_parts(meta, qrank, signinq, rows, sp: int, mode: str,
+                   splits: int = None):
     """Run the ablation ``mode`` over every candidate.
 
     Inputs as :func:`metamaps_tpu_torch.ops.l2_sweep.l2_event_sweep_batch`
-    (``meta``'s n_ev column is not read). Returns ``(out, fold)``, both
-    [N, 4] int32: ``out`` is the running max of the shared count broadcast
+    (``meta``'s n_ev column is not read). Returns ``(out, fold, planes)``:
+    ``out`` [N, 4] int32 is the running max of the shared count broadcast
     to four columns (what the JAX kernel writes; zeros without ``s``),
-    ``fold`` the fold state (best, first, last, prev_row), written so that
-    the ``f`` work stays live."""
+    ``fold`` [N, 4] int32 the fold state (best, first, last, prev_row), and
+    ``planes`` [N, 2, sp] int32 the final C and M planes, the last two
+    written so that the ``f``, ``c`` and ``m`` work stays live. On CUDA
+    tensors each candidate's ranks are split over ``splits`` CTAs of one
+    cluster (1 to 4; by default as :func:`parts_config` says)."""
     bits = mode_bits(mode)
     check_sweep_args(meta, qrank, signinq, rows, sp)
+    if splits is not None and not 1 <= splits <= MAX_SPLITS:
+        raise ValueError(f"splits must lie in [1, {MAX_SPLITS}], got {splits}")
     if meta.device.type == "cpu":
         return l2_sweep_parts_ref(meta, qrank, signinq, rows, sp, mode)
-    smem_bytes("l2_sweep_parts", sp)
     n, e2 = qrank.shape
     out = torch.empty((n, 4), dtype=torch.int32, device=meta.device)
     fold = torch.empty_like(out)
+    planes = torch.empty((n, 2, sp), dtype=torch.int32, device=meta.device)
     if n == 0:
-        return out, fold
+        return out, fold, planes
+    parts_config(n, sp, splits)
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())
     launch("l2_sweep_parts", meta.device, ptr(meta), ptr(qrank), ptr(signinq),
-           ptr(rows), ptr(out), ptr(fold), ctypes.c_int(n), ctypes.c_int(e2),
-           ctypes.c_int(sp), ctypes.c_int(bits))
+           ptr(rows), ptr(out), ptr(fold), ptr(planes), ctypes.c_int(n),
+           ctypes.c_int(e2), ctypes.c_int(sp), ctypes.c_int(splits or 0),
+           ctypes.c_int(bits))
     l2_sweep_parts.launches += 1
-    return out, fold
+    return out, fold, planes
 
 
 l2_sweep_parts.launches = 0  # kernel launches since the last reset
@@ -65,7 +88,8 @@ l2_sweep_parts.launches = 0  # kernel launches since the last reset
 def l2_sweep_parts_ref(meta, qrank, signinq, rows, sp: int, mode: str):
     """Plain PyTorch version of :func:`l2_sweep_parts`: a Python loop over
     the swept event columns with the [N, sp] planes updated in vectorised
-    steps, following ``kern`` line by line."""
+    steps, following ``kern`` line by line. Returns ``(out, fold,
+    planes)`` as the kernel does."""
     mode_bits(mode)
     dev = meta.device
     n, e2 = qrank.shape
@@ -104,4 +128,4 @@ def l2_sweep_parts_ref(meta, qrank, signinq, rows, sp: int, mode: str):
             acc = torch.maximum(acc, shared)
     out = acc[:, None].expand(n, 4).to(torch.int32).contiguous()
     fold = torch.stack([best, first, last, prev], dim=1).to(torch.int32)
-    return out, fold
+    return out, fold, torch.stack([c, m], dim=1).to(torch.int32)

@@ -1,25 +1,32 @@
 """Two builds of a sweep kernel side by side on the same inputs.
 
-Builds the kernel library from the sources in ``--base`` (a directory
-holding a copy of ``metamaps_tpu_torch/csrc``, say of the parent commit
-unpacked with ``git archive``) and from the package's own ``csrc``. For
-each kernel named by ``--kernel`` (``batch``: ``l2_event_sweep_batch``,
-``rb``: ``l2_event_sweep_rb``, ``eager``: ``l2_event_sweep`` at s_pad the
-multiple of 1024 above sp), on each input, it checks that both builds give
-the same output (and the plain version's, on the first slab) and times
-each with CUDA events in the order base, new, new, base. The inputs are
-the main-path slabs of ``chip_smoke.py``'s configuration (its synthetic
-database, reads and seed; the first read chunk's L2 slabs), setup-shaped
-and mixed streams (``paired_event_streams``) of 2048 candidates at sp 1280,
-and the sweep bench's scenarios ``full`` (random signs), ``paired-full``,
-``paired-big`` and ``mixed``.
+``--base`` names the ``csrc`` directory of another copy of the package
+(say the parent commit's, unpacked with ``git archive``); that copy's
+``ops`` modules are imported under another name, so each build is called
+through its own wrappers and builds its own kernel library under its own
+``build/``. For each kernel named by ``--kernel`` (``batch``:
+``l2_event_sweep_batch``, ``rb``: ``l2_event_sweep_rb``, ``eager``:
+``l2_event_sweep`` at s_pad the multiple of 1024 above sp, ``parts``: the
+ablation ``l2_sweep_parts``), on each input, it checks that both builds
+give the same output (and the plain version's, on the first slab and on
+every ablation mode) and times each with CUDA events in the order base,
+new, new, base. The sweep kernels' inputs are the main-path slabs of
+``chip_smoke.py``'s configuration (its synthetic database, reads and seed;
+the first read chunk's L2 slabs), setup-shaped and mixed streams
+(``paired_event_streams``) of 2048 candidates at sp 1280, and the sweep
+bench's scenarios ``full`` (random signs), ``paired-full``, ``paired-big``
+and ``mixed``; the ablation's are the sweep bench's (N 56, SP 1152, E2
+4480) in its modes ``c``, ``cm``, ``cms`` and ``cmsf``, where the two
+builds must agree on the outputs both write.
 
-    python -m metamaps_tpu_torch.profiling.sweep_ab --base OLD/csrc
-    python -m metamaps_tpu_torch.profiling.sweep_ab --base OLD/csrc --kernel rb eager
+    python -m metamaps_tpu_torch.profiling.sweep_ab --base OLD/metamaps_tpu_torch/csrc
+    python -m metamaps_tpu_torch.profiling.sweep_ab --base OLD/metamaps_tpu_torch/csrc --kernel rb eager parts
 """
 from __future__ import annotations
 
 import argparse
+import importlib
+import importlib.util
 import json
 import os
 import shutil
@@ -34,27 +41,40 @@ from ..cli import _add_sketch_args, _sketch_params
 from ..engine.index import build_shards
 from ..engine.mapper_torch import TorchMapperEngine
 from ..io.fasta import read_sequences
-from ..ops import l2_sweep
+from ..ops import l2_sweep, l2_sweep_parts
 from ..sim.synth_db import ont_read, write_synth_db_dir
-from .sweep_bench import bench_inputs, time_ms
+from .sweep_bench import (
+    PARTS_MODES,
+    PARTS_SEED,
+    PARTS_SHAPE,
+    bench_inputs,
+    parts_streams,
+    time_ms,
+)
 
-#: each kernel's wrapper and its plane width at a candidate set's sp
+#: each kernel's module, wrapper and plane width at a candidate set's sp
 KERNELS = {
-    "batch": (l2_sweep.l2_event_sweep_batch, lambda sp: sp),
-    "rb": (l2_sweep.l2_event_sweep_rb, lambda sp: sp),
-    "eager": (l2_sweep.l2_event_sweep, lambda sp: -(-sp // 1024) * 1024),
+    "batch": ("l2_sweep", "l2_event_sweep_batch", lambda sp: sp),
+    "rb": ("l2_sweep", "l2_event_sweep_rb", lambda sp: sp),
+    "eager": ("l2_sweep", "l2_event_sweep",
+              lambda sp: -(-sp // 1024) * 1024),
+    "parts": ("l2_sweep_parts", "l2_sweep_parts", lambda sp: sp),
 }
 BENCH_CASES = ("full", "paired-full", "paired-big", "mixed")
+BASE_NAME = "_sweep_ab_base"  # the other copy's import name
 
 
-def library(csrc: Path):
-    """The kernel library built from the sources in ``csrc``."""
-    saved = l2_sweep.CSRC, l2_sweep._lib
-    l2_sweep.CSRC, l2_sweep._lib = Path(csrc), None
-    try:
-        return l2_sweep.load_library()
-    finally:
-        l2_sweep.CSRC, l2_sweep._lib = saved
+def base_ops(csrc: Path) -> dict:
+    """The ``ops.l2_sweep`` and ``ops.l2_sweep_parts`` modules of the copy
+    of the package that holds ``csrc``, imported as ``BASE_NAME``."""
+    root = Path(csrc).resolve().parent
+    spec = importlib.util.spec_from_file_location(
+        BASE_NAME, root / "__init__.py", submodule_search_locations=[str(root)])
+    pkg = importlib.util.module_from_spec(spec)
+    sys.modules[BASE_NAME] = pkg
+    spec.loader.exec_module(pkg)
+    return {m: importlib.import_module(f"{BASE_NAME}.ops.{m}")
+            for m in ("l2_sweep", "l2_sweep_parts")}
 
 
 def slab_inputs(device, seed: int, genome_len: int, n_reads: int, workdir):
@@ -104,45 +124,66 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip(), flush=True)
     dev = torch.device("cuda", 0)
-    libs = {"base": library(Path(args.base)), "new": library(l2_sweep.CSRC)}
-    work = l2_sweep.BUILD_DIR.parent / "sweep_ab"
-    try:
-        cases = slab_inputs(dev, args.seed, args.genome_len, args.reads,
-                            str(work))
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
-    for flip, kind in ((0.0, "paired"), (0.04, "mixed")):
-        host = l2_sweep.paired_event_streams(np.random.default_rng(1281), 2048,
-                                             4000, 1279, flip=flip)
-        cases.append((f"{kind} sp=1280",
-                      [torch.from_numpy(a).to(dev) for a in host], 1280))
-    for name, host, sp, _ in bench_inputs(only=BENCH_CASES):
-        cases.append((f"bench {name}",
-                      [torch.from_numpy(a).to(dev) for a in host], sp))
-
-    def call(build, kernel, arrs, sp):
-        fn, width = KERNELS[kernel]
-        saved, l2_sweep._lib = l2_sweep._lib, libs[build]
+    mods = {"base": base_ops(Path(args.base)),
+            "new": {"l2_sweep": l2_sweep, "l2_sweep_parts": l2_sweep_parts}}
+    for build in mods.values():  # both libraries, before any timing
+        build["l2_sweep"].load_library()
+    cases = []  # (label, inputs on the card, sp, ablation mode or None)
+    if set(args.kernel) - {"parts"}:
+        work = l2_sweep.BUILD_DIR.parent / "sweep_ab"
         try:
-            return fn(*arrs, width(sp))
+            cases += [(label, arrs, sp, None) for label, arrs, sp in
+                      slab_inputs(dev, args.seed, args.genome_len,
+                                  args.reads, str(work))]
         finally:
-            l2_sweep._lib = saved
+            shutil.rmtree(work, ignore_errors=True)
+        for flip, kind in ((0.0, "paired"), (0.04, "mixed")):
+            host = l2_sweep.paired_event_streams(
+                np.random.default_rng(1281), 2048, 4000, 1279, flip=flip)
+            cases.append((f"{kind} sp=1280",
+                          [torch.from_numpy(a).to(dev) for a in host], 1280,
+                          None))
+        for name, host, sp, _ in bench_inputs(only=BENCH_CASES):
+            cases.append((f"bench {name}",
+                          [torch.from_numpy(a).to(dev) for a in host], sp,
+                          None))
+    n, sp, e2 = PARTS_SHAPE
+    parts_arrs = [torch.from_numpy(a).to(dev)
+                  for a in parts_streams(n, sp, e2, PARTS_SEED)]
+    parts_cases = [(f"bench mode {mode}", parts_arrs, sp, mode)
+                   for mode in PARTS_MODES]
+
+    def call(build, kernel, arrs, sp, mode):
+        module, fn, width = KERNELS[kernel]
+        fn = getattr(mods[build][module], fn)
+        return fn(*arrs, width(sp), *([mode] if mode else []))
+
+    def same_outputs(a, b):
+        """Equal outputs; of the ablation, those both builds write."""
+        if isinstance(a, tuple):
+            return all(map(torch.equal, a, b))
+        return torch.equal(a, b)
 
     results = {}
     for kernel in args.kernel:
         results[kernel] = {}
-        for label, arrs, sp in cases:
-            width = KERNELS[kernel][1](sp)
-            outs = {b: call(b, kernel, arrs, sp) for b in libs}
+        for label, arrs, sp, mode in parts_cases if kernel == "parts" \
+                else [c for c in cases if c[3] is None]:
+            width = KERNELS[kernel][2](sp)
+            outs = {b: call(b, kernel, arrs, sp, mode) for b in mods}
             torch.cuda.synchronize()
-            same = torch.equal(outs["base"], outs["new"])
-            if label == "slab 0":
+            same = same_outputs(outs["base"], outs["new"])
+            if kernel == "parts":
+                same = same and same_outputs(outs["new"],
+                                             l2_sweep_parts.l2_sweep_parts_ref(
+                                                 *arrs, sp, mode))
+            elif label == "slab 0":
                 same = same and torch.equal(
                     outs["new"], l2_sweep.l2_event_sweep_ref(*arrs, width))
             ms = {}
             for b in ("base", "new", "new", "base"):
                 ms.setdefault(b, []).append(time_ms(
-                    lambda: call(b, kernel, arrs, sp), dev, args.reps))
+                    lambda: call(b, kernel, arrs, sp, mode), dev, args.reps))
             n_ev = arrs[0][:, 3].clamp(0, arrs[1].shape[1])
             row = results[kernel][label] = dict(
                 equal=same, ms=ms, N=int(arrs[1].shape[0]),

@@ -15,8 +15,10 @@ and ``profiling/pallas_sweep_parts.py`` (the sweep's ablation):
   SP) are timed and must give the same outputs; each row reports its
   events in each mode (:func:`sweep_routes`) and the bound the three
   kernels share on its inputs (:func:`sweep_bound`);
-- the ablation modes ``cms`` and ``cmsf`` at N 56, SP 1152, E2 4480 with
-  the ablation script's seed 0, timed; the two must give the same output.
+- the ablation modes ``c``, ``cm``, ``cms`` and ``cmsf`` at N 56, SP 1152,
+  E2 4480 with the ablation script's seed 0, each timed beside its bound;
+  ``cms`` and ``cmsf`` must give the same output, and every mode with a
+  plane's letter the same plane.
 
 On a CUDA device only the kernels run (CUDA-event timings); on the CPU the
 wrappers take their plain versions (host-clock timings), which is for
@@ -41,7 +43,7 @@ from ..ops.l2_sweep import (
     l2_event_sweep_rb,
     paired_event_streams,
 )
-from ..ops.l2_sweep_parts import l2_sweep_parts
+from ..ops.l2_sweep_parts import TPU_BLK, l2_sweep_parts, parts_config
 
 # (name, K candidates, R, SP, real candidates, event fraction), in the order
 # of sweep_rb_bench.py, which draws them all from one generator
@@ -65,7 +67,7 @@ PAIRED_SEED = 6
 EAGER_S_PAD = 2048
 PARTS_SHAPE = (56, 1152, 4480)  # N, SP, E2 of pallas_sweep_parts.py
 PARTS_SEED = 0
-PARTS_MODES = ("cms", "cmsf")
+PARTS_MODES = ("c", "cm", "cms", "cmsf")
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 SM_CLOCK_MHZ = 1980.0  # H100 SXM's highest SM clock (nvidia-smi clocks.max.sm)
@@ -126,6 +128,17 @@ def parts_streams(N=PARTS_SHAPE[0], SP=PARTS_SHAPE[1], E2=PARTS_SHAPE[2],
     return meta, qrank, signinq, rows
 
 
+def parts_bound(host, sp: int, mode: str, clock_mhz: float):
+    """:func:`sweep_bound` of the ablation ``mode`` on its numpy inputs
+    ``host`` (meta, qrank, signinq, rows) at width ``sp``: the whole
+    128-event blocks swept, ``out`` and ``fold`` written, and the [N, 2,
+    sp] int32 planes."""
+    n, e2 = host[1].shape
+    return sweep_bound(*host[:3], clock_mhz, swept=e2 // TPU_BLK * TPU_BLK,
+                       outputs=2, plane_ops=parts_plane_ops(mode),
+                       extra_bytes=n * 2 * sp * 4)
+
+
 def time_ms(fn, device, reps: int) -> float:
     """Mean milliseconds per call after one warm-up call: CUDA events on a
     card, the host clock on the CPU."""
@@ -177,18 +190,28 @@ def sweep_routes(meta, qrank, signinq, sp: int):
     return n_ev - recount, recount
 
 
+def parts_plane_ops(mode: str) -> int:
+    """Operations per plane element and event of an ablation mode: one for
+    each of the suffix add (``c``), the one-hot add (``m``) and the count
+    (``s``) that it does."""
+    return len(set(mode) & set("cms"))
+
+
 def sweep_bound(meta, qrank, signinq, sm_clock_mhz: float,
-                swept=None, outputs: int = 1, sp: int = None):
+                swept=None, outputs: int = 1, sp: int = None,
+                plane_ops: int = OPS_PER_PLANE_ELEMENT, extra_bytes: int = 0):
     """The least time the card could take for one sweep on these inputs
     (numpy arrays): the larger of the bytes bound (the swept events and
-    ``meta`` read once, ``outputs`` [N, 4] int32 arrays written once, at
-    3.35 TB/s) and the operations bound (integer operations at the CUDA
-    cores' INT32 rate of 132 SMs x 64 lanes x the SM clock).
+    ``meta`` read once, ``outputs`` [N, 4] int32 arrays and ``extra_bytes``
+    more written once, at 3.35 TB/s) and the operations bound (integer
+    operations at the CUDA cores' INT32 rate of 132 SMs x 64 lanes x the SM
+    clock).
 
     The operations count what this data needs, whatever implements it. A
-    recount event needs about 3 operations per plane element, and only the
-    ranks up to the candidate's highest in-query rank among its swept
-    events (the count reads the C plane only where the M plane is set).
+    recount event needs about ``plane_ops`` (3) operations per plane
+    element, and only the ranks up to the candidate's highest in-query rank
+    among its swept events (the count reads the C plane only where the M
+    plane is set).
     Given ``sp``, the inputs are the sweep's (``l2_event_sweep_batch``,
     ``_rb``, ``l2_event_sweep``): an event in incremental mode
     (:func:`sweep_routes`) needs ``OPS_PER_INCREMENTAL_EVENT`` operations
@@ -212,10 +235,11 @@ def sweep_bound(meta, qrank, signinq, sm_clock_mhz: float,
     else:
         incremental, recount = sweep_routes(meta, qrank, signinq, sp)
     swept_events = int(swept.sum())
-    n_bytes = n * 4 * 4 + 3 * swept_events * 4 + outputs * n * 4 * 4
-    recount_ops = OPS_PER_PLANE_ELEMENT * int((swept * width).sum())
+    n_bytes = (n * 4 * 4 + 3 * swept_events * 4 + outputs * n * 4 * 4
+               + extra_bytes)
+    recount_ops = plane_ops * int((swept * width).sum())
     n_ops = (OPS_PER_INCREMENTAL_EVENT * int(incremental.sum())
-             + OPS_PER_PLANE_ELEMENT * int((recount * width).sum()))
+             + plane_ops * int((recount * width).sum()))
     rate = SMS * INT32_LANES * sm_clock_mhz * 1e6
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     ops_ms = n_ops / rate * 1e3
@@ -260,18 +284,26 @@ def run(device, reps: int = 10, scenarios=SCENARIOS,
         if not equal:
             raise AssertionError(f"sweep kernels disagree on scenario {name}")
     N, SP, E2 = parts_shape
-    arrs = [torch.from_numpy(a).to(device)
-            for a in parts_streams(N, SP, E2, PARTS_SEED)]
+    host = parts_streams(N, SP, E2, PARTS_SEED)
+    arrs = [torch.from_numpy(a).to(device) for a in host]
     outs = {}
     for mode in PARTS_MODES:
-        outs[mode] = l2_sweep_parts(*arrs, SP, mode)[0]
+        outs[mode] = l2_sweep_parts(*arrs, SP, mode)
         ms = time_ms(lambda: l2_sweep_parts(*arrs, SP, mode), device, reps)
-        row = dict(mode=mode, N=N, E2=E2, sp=SP, ms=ms,
-                   acc_max=int(outs[mode][:, 0].max()))
+        bound_ms, bound_by, _ = parts_bound(host, SP, mode, clock_mhz)
+        row = dict(mode=mode, N=N, E2=E2, sp=SP, ms=ms, bound_ms=bound_ms,
+                   bound_by=bound_by, acc_max=int(outs[mode][0][:, 0].max()))
+        if device.type == "cuda":
+            row.update(parts_config(N, SP))
         log(json.dumps(row))
         results["parts"].append(dict(row, inputs=arrs, out=outs[mode]))
-    if not torch.equal(outs["cms"], outs["cmsf"]):
+    if not torch.equal(outs["cms"][0], outs["cmsf"][0]):
         raise AssertionError("ablation modes cms and cmsf disagree")
+    for mode in PARTS_MODES:  # each plane is the same in every mode with it
+        for k, letter in enumerate("cm"):
+            if letter in mode and not torch.equal(outs[mode][2][:, k],
+                                                  outs["cmsf"][2][:, k]):
+                raise AssertionError(f"ablation mode {mode}: {letter} plane")
     return results
 
 

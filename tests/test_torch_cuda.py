@@ -25,6 +25,7 @@ from metamaps_tpu_torch.ops.l2_sweep import (
 from metamaps_tpu_torch.ops.l2_sweep_parts import (
     l2_sweep_parts,
     l2_sweep_parts_ref,
+    parts_config,
 )
 from metamaps_tpu_torch.params import Parameters
 from metamaps_tpu_torch.profiling.sweep_bench import parts_streams
@@ -205,18 +206,51 @@ def test_eager_kernel_block_sizes(cuda, n):
     assert torch.equal(got.cpu(), l2_event_sweep_ref(*cpu, 2048))
 
 
-@pytest.mark.parametrize("mode", ["cms", "cmsf", "cmf", "s"])
-def test_parts_kernel_equals_plain(cuda, mode):
-    """Output and fold state, at a small ablation shape (E2 = 3 * 128 + 45:
-    the tail is not swept)."""
-    cpu = [torch.from_numpy(a) for a in parts_streams(12, 1152, 429, seed=4)]
+def _parts_on_card(cuda, cpu, sp, mode, splits=None):
+    """The ablation kernel against its plain version on the same inputs:
+    output, fold state and planes, bit for bit, and one launch counted."""
     before = l2_sweep_parts.launches
-    got = l2_sweep_parts(*[a.to(cuda) for a in cpu], 1152, mode)
+    got = l2_sweep_parts(*[a.to(cuda) for a in cpu], sp, mode, splits=splits)
     torch.cuda.synchronize()
     assert l2_sweep_parts.launches == before + 1
-    want = l2_sweep_parts_ref(*cpu, 1152, mode)
-    assert torch.equal(got[0].cpu(), want[0])
-    assert torch.equal(got[1].cpu(), want[1])
+    want = l2_sweep_parts_ref(*cpu, sp, mode)
+    for g, w in zip(got, want, strict=True):
+        assert torch.equal(g.cpu(), w)
+    return want
+
+
+@pytest.mark.parametrize("mode", ["cms", "cmsf", "cmf", "s", "c", "m", "f",
+                                  "cm"])
+def test_parts_kernel_equals_plain(cuda, mode):
+    """Output, fold state and planes, at a small ablation shape (E2 = 3 *
+    128 + 45: the tail is not swept; 12 candidates: four CTAs each)."""
+    cpu = [torch.from_numpy(a) for a in parts_streams(12, 1152, 429, seed=4)]
+    assert parts_config(12, 1152)["splits"] == 4
+    out, _, planes = _parts_on_card(cuda, cpu, 1152, mode)
+    assert bool(out.any()) == ("m" in mode and "s" in mode)
+    assert bool(planes[:, 0].any()) == ("c" in mode)
+
+
+@pytest.mark.parametrize("n,sp,e2,splits", [
+    (12, 1152, 429, 1), (12, 1152, 429, 4), (56, 1152, 700, 3),
+    (200, 1152, 300, None), (33, 384, 300, None), (9, 256, 1000, 2),
+    (20, 384, 100, None)])
+def test_parts_kernel_splits(cuda, n, sp, e2, splits):
+    """Ranks split over 1 to 4 CTAs of a cluster, forced or by default (200
+    candidates: one CTA each, four ranks a thread); sp 256 and 384 leave
+    padding ranks past sp; ranks below 0 and at or above sp; E2 = 100 <
+    128 sweeps nothing and must write zeros."""
+    rng = np.random.default_rng(n + sp + e2)
+    meta, _, signinq, rows = parts_streams(n, sp, e2, seed=n)
+    qrank = rng.integers(-3, sp + 3, (n, e2)).astype(np.int32)
+    meta[:, 0] = rng.integers(-2, sp + 40, n)
+    cpu = [torch.from_numpy(a) for a in (meta, qrank, signinq, rows)]
+    for mode in ("cmsf", "cm"):
+        out, fold, planes = _parts_on_card(cuda, cpu, sp, mode, splits)
+        if e2 < 128:
+            assert not out.any() and not fold.any() and not planes.any()
+        elif mode == "cmsf":
+            assert (out[:, 0] > 0).sum() > n // 2
 
 
 def test_variant_wrappers_reject_bad_widths(cuda):
@@ -238,6 +272,16 @@ def test_variant_wrappers_reject_bad_widths(cuda):
         l2_sweep_parts(*arrs, 1152, "cmq")
     with pytest.raises(TypeError):
         l2_sweep_parts(arrs[0].long(), *arrs[1:], 1152, "cms")
+    # the ranks of one CTA: at most 31 warps of 32 threads of 4 ranks
+    many = [torch.from_numpy(a).to(cuda) for a in
+            random_event_streams(np.random.default_rng(6), 500, 16, 100)]
+    assert parts_config(500, 3968)["splits"] == 1
+    l2_sweep_parts(*many, 3968, "cmsf")
+    with pytest.raises(ValueError, match="too wide"):
+        l2_sweep_parts(*many, 3968 + 128, "cmsf")
+    with pytest.raises(ValueError, match="splits"):
+        l2_sweep_parts(*arrs, 1152, "cmsf", splits=5)
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("name", ["batch", "rb", "eager", "parts"])
@@ -256,5 +300,7 @@ def test_empty_input_launches_nothing(cuda, name):
     got = wrapper(meta, *events, *width)
     torch.cuda.synchronize()
     assert wrapper.launches == before
-    for out in got if isinstance(got, tuple) else (got,):
+    for out in got[:2] if isinstance(got, tuple) else (got,):
         assert out.shape == (0, 4)
+    if name == "parts":
+        assert got[2].shape == (0, 2, 1152)

@@ -23,6 +23,7 @@ from metamaps_tpu_torch.engine import em as port_em
 
 from util_db import make_mini_db, write_reads_fastq
 from util_sim import random_genome, sample_reads
+from util_torch import one_torch_thread  # noqa: F401  (autouse fixture)
 
 EM_FILES = (".EM", ".EM.WIMP", ".EM.reads2Taxon", ".EM.reads2Taxon.krona",
             ".EM.contigCoverage", ".EM.evidenceUnknownSpecies",

@@ -30,6 +30,7 @@ from metamaps_tpu_torch.ops import l1 as l1_module
 
 from util_db import make_mini_db, write_reads_fastq
 from util_sim import random_genome, revcomp, sample_reads
+from util_torch import one_torch_thread  # noqa: F401  (autouse fixture)
 
 
 def fields(mappings):

@@ -19,6 +19,7 @@ from metamaps_tpu_torch.io import fasta, mappings, native
 from metamaps_tpu_torch.sim import synth_db
 
 from util_db import make_mini_db
+from util_torch import one_torch_thread  # noqa: F401  (autouse fixture)
 
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "goldens",
                       "mapped")

@@ -29,6 +29,7 @@ from metamaps_tpu_torch.ops.lookup import lookup
 from metamaps_tpu_torch.ops.tables import device_tables
 
 from util_sim import random_genome, revcomp, sample_reads
+from util_torch import one_torch_thread  # noqa: F401  (autouse fixture)
 
 SHARD_FIELDS = ("seqid", "wpos", "strand", "hash_pos_order", "hash_sorted",
                 "seqid_byhash", "wpos_byhash", "strand_byhash",

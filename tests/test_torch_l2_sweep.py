@@ -54,6 +54,7 @@ from metamaps_tpu_torch.ops.tables import device_tables
 from metamaps_tpu_torch.ops.winnow import winnow_np
 
 from util_sim import random_genome, revcomp, sample_reads
+from util_torch import one_torch_thread  # noqa: F401  (autouse fixture)
 
 CFG = MapKernelConfig.for_read_len(4096, 16, 16, l2_impl="scatter")
 CFG_PALLAS = dataclasses.replace(CFG, l2_impl="pallas", l2_interpret=True)
@@ -245,7 +246,7 @@ def test_plain_parts_matches_pallas_interpret(mode):
     arrs = _parts_inputs(3, n, e2, sp, row_span=900)
     want = np.asarray(_pallas_parts(mode, n, sp, e2)(*map(jnp.asarray, arrs)))
     args = [torch.from_numpy(a) for a in arrs]
-    out, _ = l2_sweep_parts_ref(*args, sp, mode)
+    out = l2_sweep_parts_ref(*args, sp, mode)[0]
     np.testing.assert_array_equal(out.numpy(), want)
     assert (want[:, 0] > 0).all()
     before = l2_sweep_parts.launches
@@ -261,8 +262,8 @@ def test_parts_modes_cms_and_cmsf_agree():
     for seed in range(3):
         args = [torch.from_numpy(a) for a in
                 _parts_inputs(seed, 16, 700, 384, row_span=300 + 200 * seed)]
-        cms, fold_cms = l2_sweep_parts_ref(*args, 384, "cms")
-        cmsf, fold_cmsf = l2_sweep_parts_ref(*args, 384, "cmsf")
+        cms, fold_cms, _ = l2_sweep_parts_ref(*args, 384, "cms")
+        cmsf, fold_cmsf, _ = l2_sweep_parts_ref(*args, 384, "cmsf")
         assert torch.equal(cms, cmsf)
         assert (cms[:, 0] > 0).all()
         assert (fold_cmsf[:, 0] <= cmsf[:, 0]).all()
@@ -287,7 +288,12 @@ def test_sweep_bench_runs_on_cpu():
     # events per mode: setup-shaped streams never leave incremental mode
     assert paired["recount_events"] == 0 < paired["incremental_events"]
     assert mixed["recount_events"] > 0 and row["recount_events"] > 0
-    assert [p["mode"] for p in res["parts"]] == ["cms", "cmsf"]
+    assert [p["mode"] for p in res["parts"]] == ["c", "cm", "cms", "cmsf"]
+    # each ablation mode's bound counts its own operations per plane element
+    ops = {p["mode"]: p["bound_ms"] for p in res["parts"]}
+    assert ops["cm"] == pytest.approx(2 * ops["c"], rel=1e-12)
+    assert ops["cms"] == ops["cmsf"] == pytest.approx(3 * ops["c"], rel=1e-12)
+    assert res["parts"][0]["bound_by"] == "operations"
     # the bound counts the swept events and, per candidate, the ranks up to
     # its highest in-query rank among them: 1280 and 640 here (the rank
     # 2000 lies past candidate 0's n_ev; 1500 is a ref-only event's)

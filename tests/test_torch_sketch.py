@@ -14,6 +14,7 @@ from metamaps_tpu_torch.ops import winnow as twin
 from metamaps_tpu_torch.ops.sketch import sketch
 
 from util_sim import random_genome, sample_reads
+from util_torch import one_torch_thread  # noqa: F401  (autouse fixture)
 
 GOLDEN = [  # tests/test_murmur3.py: reference murmur3, seed 42, low 32 of h1
     ("ACGTACGTACGTACGT", 0xAC055887),

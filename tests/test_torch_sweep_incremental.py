@@ -43,6 +43,7 @@ from metamaps_tpu_torch.ops.l2_sweep import (
 from metamaps_tpu_torch.profiling import sweep_bench
 
 from test_torch_l2_sweep import CFG, slab  # noqa: F401  (module fixture)
+from util_torch import one_torch_thread  # noqa: F401  (autouse fixture)
 
 
 TILE = 64  # the kernel's events per staged tile, two per lane in the fold
