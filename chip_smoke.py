@@ -4,7 +4,9 @@ NVIDIA card: builds the L2 sweep kernels from ``metamaps_tpu_torch/csrc``,
 holds each against its plain PyTorch version, drives the port's main path
 -- ``mapDirectly`` followed by ``classify`` (EM rounds on the card) through
 the port's CLI -- on a mock-community-scale synthetic database, checks the
-outputs, then drives the sweep bench, the path of the other sweep kernels.
+outputs, then drives the sweep bench, the path of the other sweep kernels,
+and then the lab's day-to-day path on the same data: ``index`` into stored
+shards, ``mapAgainstIndex``, ``classify`` and ``classifyU``.
 
     python3 chip_smoke.py                  # 36 genomes x 3 Mbp, 4096 reads
     python3 chip_smoke.py --reads 512 --genome-len 1000000
@@ -40,16 +42,39 @@ Phases (each prints its wall seconds; any failure exits non-zero):
    cm, cms and cmsf; each is then held bit for bit against its plain
    version on every scenario and in every mode (the ablation's output,
    fold state and planes);
-8. summary: reads/s, classify seconds, peak device memory, then the card
-   line, the kernel JSON line and the final JSON line.
+8. map_against_index: ``index`` stores the same database in at least two
+   shards (``--maxmemory 1``, or a byte budget where 1 GB does not cut
+   it), ``mapAgainstIndex`` (torch engine on CUDA) maps the same reads over
+   them; checks: the sweep kernel ran, oracle fallbacks <= 1%, >= 90% of
+   reads mapped, .meta adds up, device memory back at its level before the
+   run, and a 64-read sample (8 files of 8 reads) gives byte-identical
+   mapping and .meta files with ``--mapping-engine oracle`` (8 worker
+   processes); then ``classify`` and ``classifyU`` (with a
+   selfSimilarities.txt for the genus nodes, made from ``--seed``) on the
+   multi-shard output: every .U* file written, every mapped read in
+   .U.reads2Taxon;
+9. long_read: a ~62 kb read of genome 0 mapped at ``--pi 60 --window 3``
+   against that genome: its sketch (~31,000 hashes) is wider than the batch
+   kernel's shared-memory planes take (``BATCH_SP_MAX``), and its minimum
+   hits (~19) stay within the L1 detector's shift limit, so its slab is
+   swept on the card by the wide kernel (planes in device memory); checks:
+   the wide kernel ran, no oracle fallback, the read maps where it was
+   drawn, and the wide kernel equals its plain version bit for bit on the
+   read's real slab and on random and paired streams at widths up to the
+   widest bucket's plane;
+10. summary: reads/s of both mapping paths, classify seconds, peak device
+   memory, then the card line, the kernel JSON line and the final JSON
+   line.
 """
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import multiprocessing
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import time
@@ -61,12 +86,19 @@ import torch
 from metamaps_tpu_torch.cli import _add_sketch_args, _sketch_params
 from metamaps_tpu_torch.cli import main as cli_main
 from metamaps_tpu_torch.engine import em, mapper_oracle
-from metamaps_tpu_torch.engine.index import SketchShard, build_shards
+from metamaps_tpu_torch.engine.index import (
+    SketchShard,
+    build_shards,
+    create_index,
+    load_index_manifest,
+    reference_memory_model,
+)
 from metamaps_tpu_torch.engine.mapper_torch import TorchMapperEngine
 from metamaps_tpu_torch.io.fasta import read_sequences
-from metamaps_tpu_torch.io.mappings import MappingLine, read_meta
+from metamaps_tpu_torch.io.mappings import (MappingLine, parse_mapping_line,
+                                            read_meta)
 from metamaps_tpu_torch.io.native import winnow_native
-from metamaps_tpu_torch.ops import l2_sweep, l2_sweep_parts
+from metamaps_tpu_torch.ops import l1, l2_sweep, l2_sweep_parts
 from metamaps_tpu_torch.profiling import em_bench, sweep_bench
 from metamaps_tpu_torch.sim.synth_db import ont_read, write_synth_db_dir
 
@@ -81,6 +113,20 @@ STREAM_E2 = {128: 600, 1024: 900, 1280: 1400, 2048: 1200, 3584: 800,
 EM_FILES = (".EM", ".EM.WIMP", ".EM.reads2Taxon", ".EM.reads2Taxon.krona",
             ".EM.contigCoverage", ".EM.evidenceUnknownSpecies",
             ".EM.lengthAndIdentitiesPerMappingUnit")
+U_FILES = (".mapQ_U", ".U.WIMP", ".U.WIMP.absoluteClassifiedAt",
+           ".U.reads2Taxon", ".U.lengthAndIdentitiesPerTaxonID",
+           ".U.shiftedHistogramsPerTaxonID", ".EM2U.details", ".EM2U.summary")
+SAMPLE_PARTS = 8  # files (and oracle worker processes) of the sample
+LONG_READ = 62_000  # bp: at w = 3 its planes are wider than BATCH_SP_MAX
+# at --pi 60 the minimum hits of a ~31,000-hash sketch (~19) are within the
+# L1 detector's shift limit (32), so the read reaches the sweep; at --pi 75
+# (~250) it would go to the serial oracle in both packages' engines
+LONG_READ_ARGS = ["--pi", "60", "--window", "3"]
+WIDE_STREAM_WIDTHS = (28928, 41088)  # just above BATCH_SP_MAX; widest bucket
+# --minreads of classify and classifyU: U fits its identity model on a
+# contig with more assigned reads than this (the default, 10000, is a real
+# sample's); 4096 reads put ~110 on each of the 36 genomes
+U_MIN_READS = "50"
 
 # the serial oracle takes seconds per read at this database size, so the
 # sample is mapped by a pool of spawned workers that load the shard from disk
@@ -95,6 +141,35 @@ def _oracle_worker_init(shard_path: str, params) -> None:
 def _oracle_map(seq):
     return mapper_oracle.map_read(_worker_state["shard"],
                                   _worker_state["params"], seq)
+
+
+def _cli_worker(argv):
+    """One port CLI command in a spawned worker process: (exit code,
+    engine counters)."""
+    engine_stats: dict = {}
+    return cli_main(argv, engine_stats=engine_stats), engine_stats
+
+
+def same_bytes(a: str, b: str) -> bool:
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        return fa.read() == fb.read()
+
+
+def write_self_similarities(db: str, rng) -> int:
+    """A selfSimilarities.txt for every genus node of the database's
+    taxonomy (the shape tests/test_u_pipeline.py writes): per read length,
+    identities around a centre drawn from ``rng``. Returns the node count."""
+    with open(os.path.join(db, "taxonomy", "nodes.dmp")) as f:
+        genera = [row[0] for row in (l.split("\t|\t") for l in f)
+                  if row[2].startswith("genus")]
+    with open(os.path.join(db, "selfSimilarities.txt"), "w") as f:
+        for node in genera:
+            centre = int(rng.integers(84, 93))
+            for rl in (2000, 5000, 10000, 20000):
+                for d, p in ((-4, 0.1), (-2, 0.2), (0, 0.4), (2, 0.2),
+                             (4, 0.1)):
+                    f.write(f"{node}\t{rl}\t{centre + d}\t{p}\t\n")
+    return len(genera)
 
 
 def log(msg: str) -> None:
@@ -119,14 +194,20 @@ class Phase:
         return False
 
 
-def compare(label, fn, ref, arrs, *width):
+def compare(label, fn, ref, arrs, *width, timed: dict = None):
     """A kernel wrapper ``fn`` against its plain version ``ref`` on the same
     CUDA tensors; returns the max abs difference. Exact int32 arithmetic:
-    any difference fails."""
+    any difference fails. ``timed``, when given, gets the plain call's
+    milliseconds by CUDA events (``plain_ms``)."""
     got = fn(*arrs, *width)
     torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
     want = ref(*arrs, *width)
+    end.record()
     torch.cuda.synchronize()
+    if timed is not None:
+        timed["plain_ms"] = start.elapsed_time(end)
     err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max()) \
         if got.numel() else 0
     n, e2 = arrs[1].shape
@@ -138,16 +219,17 @@ def compare(label, fn, ref, arrs, *width):
 
 
 def kernel_entry(name, source, replaces, arrs, width, clock_mhz, err, fn,
-                 ref, sp=None, bound=None, **extra):
+                 ref, sp=None, bound=None, plain_ms=None, **extra):
     """One row of the kernels line: the kernel's and the plain version's
-    CUDA-event times on ``arrs`` and the bound on the same inputs, from the
-    work this data needs: ``bound`` (ms, bound_by, counts) where given,
-    else ``sweep_bench.sweep_bound`` with ``sp``, and then the row also
-    carries the bound with every event recounted and the events in each
-    mode."""
+    CUDA-event times on ``arrs`` (``plain_ms`` where the caller timed it
+    already) and the bound on the same inputs, from the work this data
+    needs: ``bound`` (ms, bound_by, counts) where given, else
+    ``sweep_bench.sweep_bound`` with ``sp``, and then the row also carries
+    the bound with every event recounted and the events in each mode."""
     ms = sweep_bench.time_ms(lambda: fn(*arrs, *width), arrs[0].device, 5)
-    plain_ms = sweep_bench.time_ms(lambda: ref(*arrs, *width),
-                                   arrs[0].device, 1)
+    if plain_ms is None:
+        plain_ms = sweep_bench.time_ms(lambda: ref(*arrs, *width),
+                                       arrs[0].device, 1)
     if bound is None:
         host = [a.cpu().numpy() for a in arrs]
         bound = sweep_bench.sweep_bound(host[0], host[1], host[2], clock_mhz,
@@ -165,11 +247,278 @@ def kernel_entry(name, source, replaces, arrs, width, clock_mhz, err, fn,
                        width[0]], **extra)
 
 
-def write_fastq(path, reads):
+def write_fastq(path, reads, first: int = 0):
     with open(path, "w") as f:
-        for i, seq in enumerate(reads):
+        for i, seq in enumerate(reads, first):
             s = seq.tobytes().decode()
             f.write(f"@read{i}\n{s}\n+\n{'I' * len(s)}\n")
+
+
+def sketch_params(argv):
+    """The Parameters the port's CLI derives from sketch arguments."""
+    p = argparse.ArgumentParser()
+    _add_sketch_args(p)
+    return _sketch_params(p.parse_known_args(argv)[0])
+
+
+def prepare_long_read(rng, db_fa: str, lr_dir: str) -> dict:
+    """Draw a ~62 kb read of the database's first genome and write it, and
+    that genome as its reference, under ``lr_dir``."""
+    os.makedirs(lr_dir, exist_ok=True)
+    name0, g0 = next(read_sequences(db_fa))
+    ref = os.path.join(lr_dir, "ref.fa")
+    with open(ref, "w") as f:
+        f.write(f">{name0}\n{g0.tobytes().decode()}\n")
+    pos = int(rng.integers(0, len(g0) - LONG_READ))
+    read = ont_read(rng, g0[pos:pos + LONG_READ + 1], LONG_READ)
+    fq = os.path.join(lr_dir, "read.fastq")
+    write_fastq(fq, [read])
+    return dict(dir=lr_dir, ref=ref, fq=fq, read=read, pos=pos, contig=name0)
+
+
+def map_against_index(args, times: dict, db: str, fq: str, reads, shard,
+                      card: str, counters, dev) -> dict:
+    """Store the database in at least two shards, map ``fq`` over them with
+    ``mapAgainstIndex`` (torch engine), check the run and a sample against
+    the serial oracle, then run ``classify`` and ``classifyU`` on its
+    output. Returns the numbers of the run."""
+    db_fa = os.path.join(db, "DB.fa")
+    idx = os.path.join(args.workdir, "index", "DB")
+    out_mai = os.path.join(args.workdir, "mai", "out")
+    with Phase("index_stored", times):
+        os.makedirs(os.path.dirname(idx), exist_ok=True)
+        os.makedirs(os.path.dirname(out_mai), exist_ok=True)
+        # the reference memory model of the whole database as one shard
+        hashes = 1 + int(np.count_nonzero(np.diff(shard.hash_sorted)))
+        model_bytes = reference_memory_model(hashes, shard.n_minimizers)
+        if model_bytes > 2**30:
+            budget = "--maxmemory 1"
+            if cli_main(["index", "--reference", db_fa, "--index", idx,
+                         "--maxmemory", "1"]) != 0:
+                raise AssertionError("index failed")
+        else:  # 1 GB holds it: cut it with a byte budget
+            budget = model_bytes // 2 + 1
+            p_idx = sketch_params(["--reference", db_fa])
+            p_idx.index = idx
+            create_index(p_idx, idx, budget)
+        shard_files = load_index_manifest(idx)
+        log(f"memory model of the database as one shard: {model_bytes} B "
+            f"({hashes} hashes, {shard.n_minimizers} minimizers); budget "
+            f"{budget}: {len(shard_files)} stored shards ({card})")
+        if len(shard_files) < 2:
+            raise AssertionError(f"{len(shard_files)} stored shard(s), "
+                                 "expected at least 2")
+
+    for fn in counters:
+        fn.launches = 0
+    l1._MINHITS.clear()  # the table as a fresh process computes it
+    gc.collect()
+    torch.cuda.synchronize()
+    mem_before = torch.cuda.memory_allocated(dev)
+    mai_stats: dict = {}
+    with Phase("map_against_index", times):
+        if cli_main(["mapAgainstIndex", "--index", idx, "--query", fq,
+                     "--output", out_mai, "--all", "--mapping-engine",
+                     "torch"], engine_stats=mai_stats) != 0:
+            raise AssertionError("mapAgainstIndex failed")
+        torch.cuda.synchronize()
+    mai_launches = l2_sweep.l2_event_sweep_batch.launches
+    gc.collect()
+    mem_after = torch.cuda.memory_allocated(dev)
+
+    with Phase("map_against_index_checks", times):
+        mai_meta = read_meta(out_mai)
+        mai_mappable = mai_meta["TotalReads"] - mai_meta["ReadsTooShort"]
+        mai = dict(
+            card=card, shards=len(mai_stats["shard_load_s"]),
+            shard_load_s=mai_stats["shard_load_s"],
+            index_build_s=times["index_stored"], model_bytes=model_bytes,
+            budget=budget, map_against_index_s=times["map_against_index"],
+            mapping_s=mai_stats["map_s"], minhits_s=mai_stats["minhits_s"],
+            mapping_reads_per_s=mai_mappable / mai_stats["map_s"],
+            oracle_fallbacks=mai_stats["oracle_fallbacks"],
+            reads_mappable_over_shards=mai_stats["reads_mappable"],
+            l2_candidates=mai_stats["l2_candidates"],
+            sweep_launches=mai_launches, device_bytes_before=mem_before,
+            device_bytes_after=mem_after, meta=mai_meta)
+        log("mapAgainstIndex " + json.dumps(mai))
+        if mai_launches <= 0:
+            raise AssertionError("the sweep kernel never ran in "
+                                 "mapAgainstIndex")
+        if mai["oracle_fallbacks"] > 0.01 * mai["reads_mappable_over_shards"]:
+            raise AssertionError(f"{mai['oracle_fallbacks']} oracle "
+                                 "fallbacks in mapAgainstIndex")
+        if mai_meta["TotalReads"] != (mai_meta["ReadsTooShort"]
+                                      + mai_meta["ReadsMapped"]
+                                      + mai_meta["ReadsNotMapped"]):
+            raise AssertionError("mapAgainstIndex .meta does not add up")
+        if mai_meta["TotalReads"] != len(reads):
+            raise AssertionError("mapAgainstIndex .meta TotalReads differs")
+        if mai_meta["ReadsMapped"] < 0.9 * len(reads):
+            raise AssertionError(f"mapAgainstIndex mapped only "
+                                 f"{mai_meta['ReadsMapped']} reads")
+        if mem_after != mem_before:
+            raise AssertionError(f"device memory {mem_after} B after "
+                                 f"mapAgainstIndex, {mem_before} B before")
+        # the sample in SAMPLE_PARTS files: the torch engine maps them in one
+        # call, the serial oracle in one worker process each
+        sdir = os.path.join(args.workdir, "sample")
+        os.makedirs(sdir, exist_ok=True)
+        per = SAMPLE // SAMPLE_PARTS
+        parts = [os.path.join(sdir, f"part{i}.fastq")
+                 for i in range(SAMPLE_PARTS)]
+        for i, path in enumerate(parts):
+            write_fastq(path, reads[i * per:(i + 1) * per], first=i * per)
+        outs = {e: [os.path.join(sdir, f"{e}{i}") for i in range(SAMPLE_PARTS)]
+                for e in ("torch", "oracle")}
+        if cli_main(["mapAgainstIndex", "--index", idx, "--query",
+                     ",".join(parts), "--output", ",".join(outs["torch"]),
+                     "--all", "--mapping-engine", "torch"]) != 0:
+            raise AssertionError("mapAgainstIndex on the sample failed")
+        with multiprocessing.get_context("spawn").Pool(SAMPLE_PARTS) as pool:
+            _POOLS.append(pool)
+            rcs = pool.map(_cli_worker, [
+                ["mapAgainstIndex", "--index", idx, "--query", q, "--output",
+                 o, "--all", "--mapping-engine", "oracle"]
+                for q, o in zip(parts, outs["oracle"])])
+        if any(rc != 0 for rc, _ in rcs):
+            raise AssertionError("mapAgainstIndex --mapping-engine oracle "
+                                 "failed")
+        n_lines = 0
+        for t_out, o_out in zip(outs["torch"], outs["oracle"]):
+            for suffix in ("", ".meta"):
+                if not same_bytes(t_out + suffix, o_out + suffix):
+                    raise AssertionError(f"{t_out}{suffix}: torch engine "
+                                         "and oracle differ")
+            with open(o_out) as f:
+                n_lines += sum(1 for _ in f)
+        mai["sample_lines"] = n_lines
+        log(f"{SAMPLE}-read sample over {len(shard_files)} stored shards: "
+            f"{n_lines} mapping lines and .meta byte-identical with the "
+            f"torch engine and the serial oracle ({SAMPLE_PARTS} files)")
+
+    with Phase("classify_U", times):
+        n_genera = write_self_similarities(
+            db, np.random.default_rng(args.seed + 1))
+        t0 = time.perf_counter()
+        if cli_main(["classify", "--DB", db, "--mappings", out_mai,
+                     "--minreads", U_MIN_READS]) != 0:
+            raise AssertionError("classify on the mapAgainstIndex output "
+                                 "failed")
+        mai["classify_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        if cli_main(["classifyU", "--DB", db, "--mappings", out_mai,
+                     "--minreads", U_MIN_READS]) != 0:
+            raise AssertionError("classifyU failed")
+        mai["classifyU_s"] = time.perf_counter() - t0
+        for suffix in U_FILES:
+            if not os.path.getsize(out_mai + suffix):
+                raise AssertionError(f"{suffix} is empty")
+        with open(out_mai) as f:
+            mapped_ids = {line.split(" ", 1)[0] for line in f}
+        with open(out_mai + ".U.reads2Taxon") as f:
+            u_ids = {line.split("\t", 1)[0] for line in f}
+        if mapped_ids - u_ids:
+            raise AssertionError(f"{len(mapped_ids - u_ids)} mapped reads "
+                                 "missing from .U.reads2Taxon")
+        log(f"classifyU: {len(U_FILES)} .U* files written, {len(mapped_ids)} "
+            f"mapped reads all in .U.reads2Taxon; selfSimilarities for "
+            f"{n_genera} genus nodes; classify {mai['classify_s']:.2f} s, "
+            f"classifyU {mai['classifyU_s']:.2f} s ({card})")
+    return mai
+
+
+def long_read(run: dict, times: dict, card: str, counters, dev,
+              clock_mhz: float) -> tuple:
+    """Map the long read with ``mapDirectly`` (torch engine on CUDA): its
+    slab goes to the wide sweep kernel. Then hold that kernel against its
+    plain version on the read's real slab and on synthetic streams. Returns
+    (the run's numbers, the kernels line's row of the wide kernel)."""
+    wide = l2_sweep.l2_event_sweep_wide
+    ref = l2_sweep.l2_event_sweep_ref
+    out = os.path.join(run["dir"], "out")
+    argv = ["mapDirectly", "--reference", run["ref"], "--query", run["fq"],
+            "--output", out, "--all", "--mapping-engine", "torch",
+            *LONG_READ_ARGS]
+    params = sketch_params(argv[1:])
+    k, w = params.kmer_size, params.window_size
+    sketch_size = mapper_oracle.sketch_read(run["read"], k, w)[0].size
+    minhits = int(l1.minhits_table(sketch_size, k,
+                                   params.percentage_identity)[sketch_size])
+    log(f"long read: {len(run['read'])} bp of {run['contig']} at "
+        f"{run['pos']}; {' '.join(LONG_READ_ARGS)}: sketch {sketch_size} "
+        f"hashes (planes of {sketch_size + 1} ranks; the batch kernel's "
+        f"shared memory takes {l2_sweep.BATCH_SP_MAX}), minimum hits "
+        f"{minhits}")
+    if sketch_size < l2_sweep.BATCH_SP_MAX:
+        raise AssertionError("the long read's planes fit shared memory")
+    if minhits - 1 >= l1.MINHITS_SHIFT_MAX:
+        raise AssertionError("the long read would go to the oracle")
+    for fn in counters:
+        fn.launches = 0
+    l1._MINHITS.clear()  # the table as a fresh process computes it
+    stats: dict = {}
+    with Phase("long_read", times):
+        if cli_main(argv, engine_stats=stats) != 0:
+            raise AssertionError("mapDirectly on the long read failed")
+        torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in counters}
+    with Phase("long_read_checks", times):
+        with open(out) as f:
+            lines = [parse_mapping_line(line) for line in f]
+        info = dict(bp=len(run["read"]), drawn_at=run["pos"],
+                    sketch=sketch_size, minhits=minhits, w=w,
+                    lines=len(lines), launches=launches,
+                    oracle_fallbacks=stats["oracle_fallbacks"],
+                    map_s=stats["map_s"], minhits_s=stats["minhits_s"],
+                    mapDirectly_s=times["long_read"], card=card)
+        if launches[wide.__name__] <= 0:
+            raise AssertionError("the wide sweep kernel never ran on the "
+                                 "long read")
+        if stats["oracle_fallbacks"] != 0 or stats["reads_mappable"] != 1:
+            raise AssertionError("the long read went to the oracle")
+        best = max(lines, key=lambda m: m.intersection)
+        info.update(ref_start=best.ref_start, identity=best.identity,
+                    intersection=best.intersection)
+        log("long read " + json.dumps(info))
+        if (best.contig_id != run["contig"]
+                or abs(best.ref_start - run["pos"]) > LONG_READ // 20):
+            raise AssertionError(f"the long read mapped to {best.contig_id}:"
+                                 f"{best.ref_start}, drawn at {run['pos']}")
+        shards = []
+        build_shards(params, 0, lambda sh, n: shards.append(sh))
+        engine = TorchMapperEngine(shards[0], params, device=dev)
+        slabs = engine.l2_slab_setups([run["read"]])
+        errs = []
+        timed: dict = {}  # the plain version takes ~90 s on this slab: once
+        for i, (st, sp) in enumerate(slabs):
+            arrs = [t.contiguous() for t in (st.meta, st.qrank, st.signinq,
+                                             st.rows)]
+            if sp <= l2_sweep.BATCH_SP_MAX:
+                raise AssertionError(f"long-read slab {i}: sp {sp}")
+            errs.append(compare(f"long-read slab {i}", wide, ref, arrs, sp,
+                                timed=timed if i == 0 else None))
+            if i == 0:
+                slab0 = (arrs, sp)
+        for sp_r in WIDE_STREAM_WIDTHS:
+            for kind, flip in (("random", None), ("paired", 0.0),
+                               ("mixed", 0.04)):
+                rng = np.random.default_rng(sp_r)
+                host = (l2_sweep.random_event_streams(rng, 37, 300, sp_r - 1)
+                        if flip is None else l2_sweep.paired_event_streams(
+                            rng, 37, 300, sp_r - 1, flip=flip))
+                errs.append(compare(
+                    f"{kind} sp={sp_r}", wide, ref,
+                    [torch.from_numpy(a).to(dev) for a in host], sp_r))
+        arrs, sp = slab0
+        row = kernel_entry(
+            wide.__name__, "metamaps_tpu_torch/csrc/l2_sweep_wide.cu",
+            "metamaps_tpu/ops/l2_pallas.py:116", arrs, (sp,), clock_mhz,
+            max(errs), wide, ref, sp=sp, plain_ms=timed["plain_ms"],
+            scenario="long-read slab 0", plain_calls=1)
+        row["launches"] = launches[wide.__name__]
+        del engine, shards
+    return info, row
 
 
 def main(argv=None) -> int:
@@ -183,7 +532,8 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     times: dict = {}
     counters = (l2_sweep.l2_event_sweep_batch, l2_sweep.l2_event_sweep_rb,
-                l2_sweep.l2_event_sweep, l2_sweep_parts.l2_sweep_parts)
+                l2_sweep.l2_event_sweep, l2_sweep_parts.l2_sweep_parts,
+                l2_sweep.l2_event_sweep_wide)
 
     # ---- 1. environment --------------------------------------------------
     with Phase("environment", times):
@@ -238,14 +588,17 @@ def main(argv=None) -> int:
         write_fastq(fq, reads)
         log(f"DB {len(genomes)} genomes, {sum(map(len, genomes))} bp; "
             f"{len(reads)} reads, {sum(map(len, reads))} bp")
+    db_fa = os.path.join(db, "DB.fa")
 
-    argv_map = ["mapDirectly", "--reference", os.path.join(db, "DB.fa"),
+    # ---- 9a. the long read, drawn now (it runs in phase 9) ---------------
+    long_run = prepare_long_read(rng, db_fa,
+                                 os.path.join(args.workdir, "long_read"))
+
+    argv_map = ["mapDirectly", "--reference", db_fa,
                 "--query", fq, "--output", out, "--all",
                 "--mapping-engine", "torch"]
     with Phase("index", times):
-        p = argparse.ArgumentParser()
-        _add_sketch_args(p)
-        params = _sketch_params(p.parse_known_args(argv_map[1:])[0])
+        params = sketch_params(argv_map[1:])
         shards = []
         n_shards = build_shards(params, 0, lambda s, n: shards.append(s))
         if n_shards != 1:
@@ -335,6 +688,7 @@ def main(argv=None) -> int:
     torch.cuda.reset_peak_memory_stats(dev)
     for fn in counters:
         fn.launches = 0
+    l1._MINHITS.clear()  # the table as a fresh process computes it
     engine_stats: dict = {}
     with Phase("mapDirectly", times):
         if cli_main(argv_map, engine_stats=engine_stats) != 0:
@@ -460,7 +814,7 @@ def main(argv=None) -> int:
                                 clock_mhz=clock_mhz)
         bench_launches = {fn.__name__: fn.launches for fn in counters}
         log(f"sweep bench launches: {bench_launches}")
-        for fn in counters[1:]:
+        for fn in counters[1:4]:  # rb, eager, the ablation
             if fn.launches <= 0:
                 raise AssertionError(f"{fn.__name__} never ran in the bench")
         by_name = {row["scenario"]: row for row in bench["scenarios"]}
@@ -524,34 +878,57 @@ def main(argv=None) -> int:
                               for r in bench["parts"]}))
         for row in variant_rows:
             row["launches"] = bench_launches[row["name"]]
-        batch_row["launches"] = launches
         scenario_ms = {row["scenario"]: row["ms"] for row in bench["scenarios"]}
         log("sweep bench ms by scenario: " + json.dumps(scenario_ms))
 
-    # ---- 8. summary -------------------------------------------------------
+    # ---- 8. mapAgainstIndex over stored shards, then classify, classifyU
+    mai = map_against_index(args, times, db, fq, reads, shard, card, counters,
+                            dev)
+
+    # ---- 9. the long read: its slab on the wide sweep kernel --------------
+    long_info, wide_row = long_read(long_run, times, card, counters, dev,
+                                    clock_mhz)
+    lr_batch = long_info["launches"][l2_sweep.l2_event_sweep_batch.__name__]
+    batch_row.update(launches=launches + mai["sweep_launches"] + lr_batch,
+                     launches_mapDirectly=launches,
+                     launches_mapAgainstIndex=mai["sweep_launches"],
+                     launches_long_read=lr_batch)
+
+    # ---- 10. summary ------------------------------------------------------
     map_s = engine_stats["map_s"]
     summary = {
         "reads": len(reads), "reads_mappable": mappable,
         "reads_mapped": meta["ReadsMapped"],
         "mapping_reads_per_s": mappable / map_s,
         "mapDirectly_s": times["mapDirectly"], "mapping_s": map_s,
+        "minhits_s": engine_stats["minhits_s"],
         "classify_s": times["classify"], "em": em_stats,
         "index_minimizers": shard.n_minimizers,
         "peak_device_bytes": peak, "oracle_fallbacks": fallbacks,
         "l2_candidates": engine_stats["l2_candidates"],
         "sweep_launches": launches, "phase_s": times,
         "mapping_phase_s": breakdown, "sweep_bench_ms": scenario_ms,
-        "sm_clock_max_mhz": clock_mhz,
+        "sm_clock_max_mhz": clock_mhz, "map_against_index": mai,
+        "long_read": long_info, "card": card,
     }
     log("summary " + json.dumps(summary))
     shutil.rmtree(args.workdir, ignore_errors=True)
     print(card)
-    print(json.dumps({"kernels": [batch_row] + variant_rows}))
+    print(json.dumps({"kernels": [batch_row] + variant_rows + [wide_row]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
 
 
+_POOLS: list = []  # worker pools, stopped however the run ends
+
 if __name__ == "__main__":
-    sys.exit(main())
+    # a SIGTERM (a time limit) ends the run through the finally below
+    signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))
+    try:
+        sys.exit(main())
+    finally:
+        for _pool in _POOLS:
+            _pool.terminate()
+            _pool.join()

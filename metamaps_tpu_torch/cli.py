@@ -1,13 +1,19 @@
 """Command-line interface of the port.
 
-Counterpart: ``metamaps_tpu/cli.py``. ``index``, ``mapDirectly`` (single
-shard or the memory-bounded shard loop) and ``classify`` (EM rounds in
-float64 on ``--device``) run through the port. Every other subcommand of
+Counterpart: ``metamaps_tpu/cli.py``. The reference's five core
+subcommands run through the port: ``index``, ``mapDirectly`` (single shard
+or the memory-bounded shard loop), ``mapAgainstIndex`` (the stored shards
+of an ``index``), ``classify`` (EM rounds in float64 on ``--device``) and
+``classifyU`` (host code, as in the JAX package). Every other subcommand of
 the JAX package's CLI prints "not ported yet" and returns 2.
 
     python -m metamaps_tpu_torch mapDirectly --reference DB/DB.fa \\
         --query reads.fastq --output out --all
+    python -m metamaps_tpu_torch index --reference DB/DB.fa --index idx/DB
+    python -m metamaps_tpu_torch mapAgainstIndex --index idx/DB \\
+        --query reads.fastq --output out --all
     python -m metamaps_tpu_torch classify --DB DB --mappings out
+    python -m metamaps_tpu_torch classifyU --DB DB --mappings out
 """
 from __future__ import annotations
 
@@ -22,7 +28,7 @@ from .io.fasta import total_file_size
 from .params import Parameters
 
 NOT_PORTED = (
-    "mapAgainstIndex", "classifyU", "experiments", "synthDB", "simulate",
+    "experiments", "synthDB", "simulate",
     "buildTruth", "truthDataset", "extractReads", "firstQuartileScore",
     "shortenContigIDs", "splitEggNog", "addTaxonIDToFasta", "buildDB",
     "annotate", "validateDB", "DBinfo", "selfSimilarity", "geneLevelAnalysis",
@@ -52,6 +58,10 @@ def _add_query_args(p: argparse.ArgumentParser):
     p.add_argument("--mapping-engine", choices=ENGINES, default="torch",
                    help="batched torch engine (default) or serial host "
                    "engine (oracle)")
+    p.add_argument("--profile", action="store_true",
+                   help="per-phase torch engine seconds on stderr, one line "
+                   "per shard and query file (a synchronise after each "
+                   "phase)")
 
 
 def _add_device_arg(p: argparse.ArgumentParser, what: str):
@@ -78,6 +88,15 @@ def _sketch_params(args) -> Parameters:
     return p
 
 
+def _query_params(params: Parameters, args) -> None:
+    """The query-side parameters of mapDirectly and mapAgainstIndex."""
+    params.query_sequences = [args.query]
+    params.out_file_name = args.output
+    params.report_all = bool(args.all)
+    params.threads = args.threads
+    params.engine = args.mapping_engine
+
+
 def _parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="metamaps_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
@@ -91,21 +110,33 @@ def _parser() -> argparse.ArgumentParser:
     _add_query_args(p_map)
     _add_device_arg(p_map, "torch engine")
 
-    p_c = sub.add_parser("classify", help="EM composition estimation + per-read taxa")
-    p_c.add_argument("--DB", required=True, help="database directory")
-    p_c.add_argument("--mappings", required=True, help="mappings file from mapDirectly")
-    p_c.add_argument("--minreads", type=int, default=10000)
-    p_c.add_argument("--threads", "-t", type=int, default=1)
-    p_c.add_argument("--emBackend", choices=EM_BACKENDS, default="torch",
-                     help="EM round backend: torch = float64 rounds on "
-                     "--device (default), numpy = host float64 (parity path)")
-    _add_device_arg(p_c, "EM rounds")
+    p_mai = sub.add_parser("mapAgainstIndex", help="map reads against a stored index")
+    p_mai.add_argument("--index", "-i", required=True, help="index prefix")
+    _add_query_args(p_mai)
+    _add_device_arg(p_mai, "torch engine")
+
+    for name in ("classify", "classifyU"):
+        p_c = sub.add_parser(name, help=(
+            "EM composition estimation + per-read taxa" if name == "classify"
+            else "EM-U novel-species analysis on classify's output"))
+        p_c.add_argument("--DB", required=True, help="database directory")
+        p_c.add_argument("--mappings", required=True,
+                         help="mappings file from mapDirectly/mapAgainstIndex")
+        p_c.add_argument("--minreads", type=int, default=10000)
+        p_c.add_argument("--threads", "-t", type=int, default=1)
+        if name == "classify":
+            p_c.add_argument("--emBackend", choices=EM_BACKENDS, default="torch",
+                             help="EM round backend: torch = float64 rounds on "
+                             "--device (default), numpy = host float64 (parity path)")
+            _add_device_arg(p_c, "EM rounds")
     return parser
 
 
 def main(argv=None, engine_stats: dict = None) -> int:
     """Run one subcommand. ``engine_stats``, when given, accumulates the
-    mapping engine's counters (reads, oracle fallbacks, L2 candidates)."""
+    mapping engine's counters (reads, oracle fallbacks, L2 candidates, the
+    seconds spent on the minimum-hits table; for mapAgainstIndex also each
+    shard's load seconds)."""
     argv = list(sys.argv[1:] if argv is None else argv)
     if argv and argv[0] in NOT_PORTED:
         print(f"metamaps_tpu_torch: {argv[0]} is not ported yet",
@@ -127,6 +158,28 @@ def main(argv=None, engine_stats: dict = None) -> int:
             do_em(params, mf, em_backend=args.emBackend, device=args.device)
         return 0
 
+    if args.command == "classifyU":
+        from .engine.u import do_u
+
+        params = Parameters()
+        params.db = args.DB
+        params.mappings_for_classification = args.mappings
+        params.minimum_reads_for_u = args.minreads
+        for mf in args.mappings.split(","):
+            do_u(params, mf)
+        return 0
+
+    if args.command == "mapAgainstIndex":
+        from .engine.mapwrap import map_against_index
+
+        if args.mapping_engine == "torch":
+            require_cuda(args.device)
+        params = Parameters()
+        _query_params(params, args)
+        map_against_index(params, args.index, device=args.device,
+                          engine_stats=engine_stats, profile=args.profile)
+        return 0
+
     params = _sketch_params(args)
     if args.command == "index":
         from .engine.index import create_index
@@ -137,13 +190,11 @@ def main(argv=None, engine_stats: dict = None) -> int:
 
     from .engine.mapwrap import map_directly
 
-    params.query_sequences = [args.query]
-    params.out_file_name = args.output
-    params.report_all = bool(args.all)
-    params.threads = args.threads
-    params.engine = args.mapping_engine
+    if args.mapping_engine == "torch":
+        require_cuda(args.device)
+    _query_params(params, args)
     map_directly(params, params.maximum_memory, device=args.device,
-                 engine_stats=engine_stats)
+                 engine_stats=engine_stats, profile=args.profile)
     return 0
 
 

@@ -1,7 +1,7 @@
-// Pieces shared by the L2 event sweep kernels (l2_sweep.cu, l2_sweep_rb.cu,
-// l2_sweep_eager.cu, l2_sweep_parts.cu), which are compiled into one
-// library. l2_sweep.cu states the sweep's contract in full, and why its
-// two-mode chain is exact; the chain itself lives here, once:
+// Pieces shared by the L2 event sweep kernels (l2_sweep.cu, l2_sweep_wide.cu,
+// l2_sweep_rb.cu, l2_sweep_eager.cu, l2_sweep_parts.cu), which are compiled
+// into one library. l2_sweep.cu states the sweep's contract in full, and
+// why its two-mode chain is exact; the chain itself lives here, once:
 //   - event_code and decode_tile: a staged event's (rank, kind) code;
 //   - incremental_run: lane 0's O(1) step per event while no rank's
 //     ref-only multiplicity is negative (incremental mode);
@@ -334,8 +334,9 @@ __device__ __forceinline__ void recount_event(int* tile, int t, T* plane,
 
 // One warp sweeps candidate `cand` (meta row, E2 events from cand * e2)
 // and writes its output row. `plane` and `m_plane` are the warp's two rank
-// planes of sp elements of T, `tiles` its two tiles of TILE 16-byte
-// entries, all in shared memory (tiles 16-byte aligned). Tile k + 1 is in
+// planes of sp elements of T (in shared memory, or in device memory in
+// l2_sweep_wide.cu), `tiles` its two tiles of TILE 16-byte entries in
+// shared memory (16-byte aligned). Tile k + 1 is in
 // flight while tile k is swept: lane 0's chain in incremental mode, the
 // warp's recount otherwise; then the warp folds tile k.
 template <typename T>

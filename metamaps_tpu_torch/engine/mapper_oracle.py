@@ -1,7 +1,10 @@
 """Serial mapping oracle: exact mirror of the reference L1/L2 algorithm.
 
 Counterpart: ``metamaps_tpu/engine/mapper_oracle.py``, of which this is a
-jax-free copy. The port's engine falls back to it for reads that overflow a
+jax-free copy; only ``_shared_sketch_count`` differs, in how it counts (by
+union ranks instead of sorting the union, which is cheaper for wide
+sketches: the L2 scan counts one window at every step), not in what it
+counts. The port's engine falls back to it for reads that overflow a
 capacity, and ``chip_smoke.py`` holds the engine against it on the card.
 
 This is the behavioral specification for the batched device kernels in
@@ -99,15 +102,17 @@ def l1_candidates(shard, q_hashes: np.ndarray, read_len: int, minimum_hits: int)
 
 
 def _shared_sketch_count(q_sorted, q_index, r_hashes_window, s):
-    """|bottom-s(Q ∪ R) ∩ Q ∩ R| for one window (slidingMap semantics)."""
+    """|bottom-s(Q ∪ R) ∩ Q ∩ R| for one window (slidingMap semantics).
+
+    Q (sorted, unique, non-empty) and R's hashes outside Q are disjoint, so
+    a hash c common to both has union rank #(Q < c) + #(R-only < c), and
+    the count is the number of common hashes of rank below s (the union
+    rank of ``_strand_votes``), with no sort of the union."""
     r_unique = np.unique(r_hashes_window)
-    in_q = np.isin(r_unique, q_sorted, assume_unique=False)
-    r_only = r_unique[~in_q]
-    union = np.concatenate([q_sorted, r_only])
-    union.sort(kind="stable")
-    bottom = union[:s]
-    both = np.isin(bottom, q_sorted) & np.isin(bottom, r_unique)
-    return int(both.sum())
+    pos = np.searchsorted(q_sorted, r_unique)
+    in_q = q_sorted[np.minimum(pos, q_sorted.size - 1)] == r_unique
+    rank = pos[in_q] + np.searchsorted(r_unique[~in_q], r_unique[in_q])
+    return int(np.count_nonzero(rank < s))
 
 
 def l2_map_region(shard, q_sorted, s, read_len, k, w, candidate):

@@ -126,8 +126,10 @@ class TorchMapperEngine:
         return self._configs[bucket]
 
     def _minhits_upto(self, s_max: int) -> torch.Tensor:
-        """The minimum-hits table for sketch sizes 0..s_max (or longer):
-        the values depend on s alone, so one table serves every bucket."""
+        """The minimum-hits table for sketch sizes 0..s_max (or longer) on
+        the device: the values depend on s alone, so one table serves every
+        bucket; its host table is computed once per process
+        (:func:`minhits_table`)."""
         if self._minhits.numel() <= s_max:
             t = time.perf_counter()
             p = self.params
@@ -168,8 +170,6 @@ class TorchMapperEngine:
                 results[i] = self._oracle(s)  # longer than every bucket
             else:
                 by_bucket.setdefault(b, []).append(i)
-        if by_bucket:
-            self._minhits_upto(self._config_for(max(by_bucket)).sketch_max)
         for bucket, idxs in by_bucket.items():
             cfg = self._config_for(bucket)
             for c0 in range(0, len(idxs), self.CHUNK):
@@ -194,11 +194,13 @@ class TorchMapperEngine:
         q_hash, q_strand, s_size, s_ovf = sketch(
             reads_d, lens_d, k, w, cfg.sketch_max, cfg.alphabet_size)
         t = self._phase("sketch", t)
+        # the table reaches this chunk's widest sketch
+        minhits = self._minhits_upto(int(s_size.max()))
+        t = time.perf_counter()
         start, count, total, q_key = lookup(self.tables, q_hash)
         t = self._phase("lookup", t)
         reg = l1_regions(self.tables, start, count, total, s_size, lens_d,
-                         self._minhits_upto(cfg.sketch_max), cfg.hits_max,
-                         cfg.cands_max)
+                         minhits, cfg.hits_max, cfg.cands_max)
         # a candidate window beyond range_max sends its whole read to the
         # oracle, like the other overflows
         fallback = s_ovf | reg.overflow

@@ -2,11 +2,12 @@
 
 Counterpart: ``metamaps_tpu/engine/mapwrap.py``. :func:`add_mapping_qualities`
 and :func:`unify_files` are jax-free copies (the JAX module imports ``jax``
-through its index and oracle modules); :func:`map_query_file_against_shard`
-and :func:`map_directly` are copies with the port's engine kinds: ``torch``
-(the batched engine on an explicit device) and ``oracle`` (the serial host
-engine). There is no ``auto``: without a CUDA device the torch engine
-raises instead of quietly running the host oracle.
+through its index and oracle modules); :func:`map_query_file_against_shard`,
+:func:`map_directly` and :func:`map_against_index` are copies with the
+port's engine kinds: ``torch`` (the batched engine on an explicit device)
+and ``oracle`` (the serial host engine). There is no ``auto``: without a
+CUDA device the torch engine raises instead of quietly running the host
+oracle.
 """
 from __future__ import annotations
 
@@ -30,7 +31,7 @@ from metamaps_tpu_torch.io.mappings import (
 from metamaps_tpu_torch.params import Parameters
 
 from . import mapper_oracle
-from .index import SketchShard, build_shards
+from .index import SketchShard, build_shards, load_index_manifest
 
 ENGINES = ("torch", "oracle")
 BATCH_READS = 8192  # reads handed to the torch engine at a time
@@ -186,18 +187,22 @@ def map_query_file_against_shard(
     engine: str = "torch",
     device="cuda",
     engine_stats: dict = None,
+    profile: bool = False,
 ):
     """skch::Map equivalent: map every (long-enough) read of one file
     against one shard, writing 12-field lines in read order
     (computeMap.hpp:104-172 + reportReadMappings). ``engine_stats``, when
-    given, accumulates the torch engine's counters."""
+    given, accumulates the torch engine's counters; ``profile`` runs the
+    torch engine with a synchronise after each phase and prints its
+    ``stats["phase_s"]`` on stderr."""
     if engine not in ENGINES:
         raise ValueError(f"unknown mapping engine {engine!r}; one of {ENGINES}")
     torch_engine = None
     if engine == "torch":
         from .mapper_torch import TorchMapperEngine
 
-        torch_engine = TorchMapperEngine(shard, params, device=device)
+        torch_engine = TorchMapperEngine(shard, params, device=device,
+                                         profile=profile)
 
     t_start = time.perf_counter()
     n_mapped = 0
@@ -257,6 +262,13 @@ def map_query_file_against_shard(
         if engine_stats is not None:
             for key in ("oracle_fallbacks", "l2_candidates", "l2_slabs"):
                 engine_stats[key] = engine_stats.get(key, 0) + es[key]
+            engine_stats["minhits_s"] = (engine_stats.get("minhits_s", 0.0)
+                                         + es["phase_s"].get("minhits", 0.0))
+        if profile:
+            print(f"INFO, metamaps_tpu_torch::map, phase seconds for "
+                  f"{out_path}: " + " ".join(
+                      f"{k}={v:.3f}" for k, v in es["phase_s"].items()),
+                  file=sys.stderr)
     if engine_stats is not None:
         for key, val in (("reads_total", n_total), ("reads_mappable", n_picked),
                          ("reads_mapped", n_mapped),
@@ -274,7 +286,7 @@ def map_query_file_against_shard(
 
 
 def map_directly(params: Parameters, maximum_memory: int = 0, device="cuda",
-                 engine_stats: dict = None):
+                 engine_stats: dict = None, profile: bool = False):
     """mapDirectly: build shards and map in the same pass
     (mapWrap.h:407-441). Supports comma-separated query/output lists."""
     prefixes = params.out_file_name.split(",")
@@ -288,7 +300,7 @@ def map_directly(params: Parameters, maximum_memory: int = 0, device="cuda",
             out_fn = f"{prefix}.{n}"
             map_query_file_against_shard(
                 shard, params, query, out_fn, engine=params.engine,
-                device=device, engine_stats=engine_stats,
+                device=device, engine_stats=engine_stats, profile=profile,
             )
             per_file_outputs[fi].append(out_fn)
 
@@ -296,6 +308,60 @@ def map_directly(params: Parameters, maximum_memory: int = 0, device="cuda",
 
     for fi, (prefix, query) in enumerate(zip(prefixes, queries)):
         local = Parameters(**{**params.__dict__})
+        local.query_sequences = [query]
+        local.out_file_name = prefix
+        unify_files(prefix, local, per_file_outputs[fi], [query])
+
+
+def map_against_index(params: Parameters, index_prefix: str, device="cuda",
+                      engine_stats: dict = None, profile: bool = False):
+    """mapAgainstIndex: restore serialized shards and map
+    (mapWrap.h:443-554). Parameters stored with the index override the
+    sketch-related CLI parameters. Each shard is loaded from its stored
+    tables in manifest order and every query file mapped against it with a
+    fresh engine, which drops its device tables before the next shard is
+    loaded. ``engine_stats``, when given, also collects the seconds of each
+    shard's load (``shard_load_s``)."""
+    from ..io.mappings import read_parameters_file
+
+    shard_files = load_index_manifest(index_prefix)
+    stored = read_parameters_file(index_prefix)
+
+    use = Parameters(**{**params.__dict__})
+    use.alphabet_size = int(stored["alphabetSize"])
+    use.kmer_size = int(stored["kmerSize"])
+    use.min_read_length = int(stored["minReadLength"])
+    use.p_value = float(stored["p_value"])
+    use.percentage_identity = float(stored["percentageIdentity"])
+    use.window_size = int(stored["windowSize"])
+    use.reference_size = int(stored["referenceSize"])
+
+    prefixes = params.out_file_name.split(",")
+    queries = params.query_sequences[0].split(",") if len(params.query_sequences) == 1 else params.query_sequences
+    assert len(prefixes) == len(queries)
+
+    per_file_outputs: List[List[str]] = [[] for _ in prefixes]
+    for shard_i, sf in enumerate(shard_files):
+        t0 = time.perf_counter()
+        shard = SketchShard.load(sf)
+        load_s = time.perf_counter() - t0
+        print(f"INFO, metamaps_tpu_torch::index, shard {shard_i} loaded from "
+              f"{sf} in {load_s:.2f} s: {len(shard.contig_names)} sequences, "
+              f"{shard.n_minimizers} minimizers", file=sys.stderr)
+        if engine_stats is not None:
+            engine_stats.setdefault("shard_load_s", []).append(load_s)
+        for fi, (prefix, query) in enumerate(zip(prefixes, queries)):
+            # 0-based shard numbers here, 1-based in map_directly, as in the
+            # JAX package
+            out_fn = f"{prefix}.{shard_i}"
+            map_query_file_against_shard(
+                shard, use, query, out_fn, engine=params.engine,
+                device=device, engine_stats=engine_stats, profile=profile,
+            )
+            per_file_outputs[fi].append(out_fn)
+
+    for fi, (prefix, query) in enumerate(zip(prefixes, queries)):
+        local = Parameters(**{**use.__dict__})
         local.query_sequences = [query]
         local.out_file_name = prefix
         unify_files(prefix, local, per_file_outputs[fi], [query])

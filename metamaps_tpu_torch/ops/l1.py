@@ -18,6 +18,7 @@ beyond its shift limit.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import numpy as np
@@ -29,15 +30,97 @@ from .tables import DeviceTables
 
 MINHITS_SHIFT_MAX = 32  # the JAX detector's static shift limit
 _LOW32 = 0xFFFFFFFF
+_MINHITS: dict = {}  # (k, pi) -> read-only table, grown on demand
+_MINHITS_BLOCK = 2048  # sketch sizes evaluated at a time
+
+
+def _j2md_vec(j: np.ndarray, k: int) -> np.ndarray:
+    """:func:`stats.j2md` on a float32 array, the same bits per element (the
+    logarithm is ``math.log``'s, as in the scalar)."""
+    j64 = j.astype(np.float64)
+    live = (j != 0) & (j != 1)
+    arg = 2.0 * j64[live] / (1.0 + j64[live])
+    md = np.empty(j.shape, np.float32)
+    md[live] = ((-1.0 / k) * np.array([math.log(a) for a in arg.tolist()],
+                                      np.float64)).astype(np.float32)
+    md[j == 0] = 1.0
+    md[j == 1] = 0.0
+    return md
+
+
+def _md2j_vec(d: np.ndarray, k: int) -> np.ndarray:
+    """:func:`stats.md2j` on a float32 array, the same bits per element."""
+    kd = np.float32(k) * d.astype(np.float32)
+    e = np.array([math.exp(v) for v in kd.astype(np.float64).tolist()],
+                 np.float64)
+    return (1.0 / (2.0 * e - 1.0)).astype(np.float32)
+
+
+def _passes(i: np.ndarray, s: np.ndarray, k: int, pi: float) -> np.ndarray:
+    """The test of ``stats.estimate_minimum_hits_relaxed``'s loop for each
+    pair (i hits, sketch size s): the upper bound of the identity that i
+    shared hashes of s give is at least pi. Every step narrows to float32
+    where the scalar does."""
+    d = _j2md_vec((i.astype(np.float64) / s).astype(np.float32), k)
+    q2 = (1.0 - float(np.float32(0.9))) / 2.0  # md_lower_bound's, ci 0.9
+    x = stats.binom_quantile_complement_vec(
+        s, _md2j_vec(d, k).astype(np.float64), q2)
+    d_lower = _j2md_vec(x.astype(np.float32) / s.astype(np.float32), k)
+    return 100.0 * (1.0 - d_lower.astype(np.float64)) >= pi
+
+
+def _relaxed_minhits(s: np.ndarray, k: int, pi: float) -> np.ndarray:
+    """``stats.estimate_minimum_hits_relaxed(s, k, pi)`` for every s >= 1 of
+    ``s``, vectorised. The scalar walks i down from start(s) =
+    ``estimate_minimum_hits`` while i passes :func:`_passes`: it returns
+    start(s) if start(s) fails, else one above the highest failing i (0 if
+    none fails). Here each s tests a window of i below start(s) at once,
+    and a window with no failure that does not reach 0 is widened and
+    tested again, so the answer is the scalar's whatever the windows."""
+    s = s.astype(np.int64)
+    jac = stats.md2j(float(np.float32(1.0 - float(pi) / 100.0)), k)
+    start = np.ceil(1.0 * s.astype(np.float64) * jac).astype(np.int64)
+    out = np.empty_like(s)
+    todo = np.arange(s.size)
+    span = start // 4 + 4
+    while todo.size:
+        st, sz = start[todo], s[todo]
+        lo = np.maximum(st - span[todo], 0)
+        n = st - lo + 1
+        row = np.repeat(np.arange(todo.size), n)
+        i = st[row] - (np.arange(row.size) - (np.cumsum(n) - n)[row])
+        fail = ~_passes(i, sz[row], k, pi)
+        # the highest failing i of each row (rows run from start(s) down)
+        hi_fail = np.full(todo.size, -1, np.int64)
+        np.maximum.at(hi_fail, row[fail], i[fail])
+        done = (hi_fail >= 0) | (lo == 0)
+        res = np.where(hi_fail == st, st, hi_fail + 1)
+        out[todo[done]] = res[done]
+        span[todo] *= 4
+        todo = todo[~done]
+    return out
 
 
 def minhits_table(s_max: int, k: int, pi: float) -> np.ndarray:
     """minimumHits per sketch size 0..s_max (``mapper_jax._minhits_table``,
-    ``metamaps_tpu/engine/mapper_jax.py:52``)."""
-    t = np.zeros(s_max + 1, np.int32)
-    for s in range(1, s_max + 1):
-        t[s] = stats.estimate_minimum_hits_relaxed(s, k, pi)
-    return t
+    ``metamaps_tpu/engine/mapper_jax.py:52``), the values of
+    ``stats.estimate_minimum_hits_relaxed`` (:func:`_relaxed_minhits`
+    computes them vectorised). A value depends on s alone, so each is
+    computed once per process for each (k, pi) and kept, like the JAX
+    package's ``lru_cache``, in one table that grows when a larger s_max is
+    asked for; every engine, one per shard and query file, reuses it.
+    Returns a read-only view."""
+    key = (int(k), float(pi))
+    t = _MINHITS.get(key, np.zeros(1, np.int32))
+    if t.size <= s_max:
+        grown = np.zeros(s_max + 1, np.int32)
+        grown[:t.size] = t
+        for a in range(t.size, s_max + 1, _MINHITS_BLOCK):
+            b = min(a + _MINHITS_BLOCK, s_max + 1)
+            grown[a:b] = _relaxed_minhits(np.arange(a, b), k, pi)
+        grown.setflags(write=False)
+        _MINHITS[key] = t = grown
+    return t[:s_max + 1]
 
 
 @dataclass

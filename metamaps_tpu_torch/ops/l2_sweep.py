@@ -1,12 +1,16 @@
 """The L2 event sweep: hand-written CUDA kernels and their plain version.
 
-Three kernels compute one function, each the counterpart of one Pallas
-kernel in ``metamaps_tpu/ops/l2_pallas.py``; their sources under
+Four kernels compute one function, each the counterpart of one Pallas
+kernel in ``metamaps_tpu/ops/l2_pallas.py`` (two of the batch kernel); their
+sources under
 ``metamaps_tpu_torch/csrc/`` state the contract and design:
 
 - :func:`l2_event_sweep_batch` (``csrc/l2_sweep.cu``): ``l2_event_sweep_batch``
   / ``_batch_sweep_kernel``, the mapping path's sweep; one warp per
-  candidate, O(1) work per event while the count has its prefix form;
+  candidate, O(1) work per event while the count has its prefix form, the
+  rank planes in shared memory up to ``BATCH_SP_MAX``; wider planes go to
+  :func:`l2_event_sweep_wide` (``csrc/l2_sweep_wide.cu``), the same warp
+  with its planes in device memory;
 - :func:`l2_event_sweep_rb` (``csrc/l2_sweep_rb.cu``): ``l2_event_sweep_rb``
   / ``_rb_sweep_kernel``; the same chain, 8 candidates to a block, int16
   planes;
@@ -39,16 +43,26 @@ I32_MIN = -(2**31)
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "metamaps_tpu_torch"
-SOURCES = ("l2_sweep", "l2_sweep_rb", "l2_sweep_eager", "l2_sweep_parts")
+SOURCES = ("l2_sweep", "l2_sweep_wide", "l2_sweep_rb", "l2_sweep_eager",
+           "l2_sweep_parts")
 HEADERS = ("l2_sweep_common.cuh",)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC"]
 SMEM_LIMIT = 227 * 1024  # dynamic shared memory one Hopper block may use
 INT16_MAX_E2 = 2**15 - 1  # events per candidate that int16 rank planes hold
+TILE_EVENTS = 64  # events per staged tile (``TILE``, csrc/l2_sweep_common.cuh)
+#: the widest plane the batch kernel keeps in shared memory: one warp needs
+#: (2 * sp + 8 * TILE_EVENTS) * 4 bytes (``warp_smem_bytes``,
+#: csrc/l2_sweep.cu), at most SMEM_LIMIT with one warp to a block, so
+#: sp <= 28800 (sketches up to 28,799 hashes: sp = round_up(sc + 1, 128) in
+#: ``ops/l2.py``). :func:`l2_event_sweep_batch` sweeps wider planes with
+#: :func:`l2_event_sweep_wide`.
+BATCH_SP_MAX = (SMEM_LIMIT - 8 * TILE_EVENTS * 4) // 8 // 128 * 128
 _P, _I = ctypes.c_void_p, ctypes.c_int
 #: argument types of each source's ``<name>_launch``
 LAUNCH_ARGS = {
     "l2_sweep": [_P] * 5 + [_I] * 3 + [_P],  # meta..out, n, e2, sp, stream
+    "l2_sweep_wide": [_P] * 6 + [_I] * 3 + [_P],  # meta..out, planes, n, e2, sp
     "l2_sweep_rb": [_P] * 5 + [_I] * 3 + [_P],
     "l2_sweep_eager": [_P] * 5 + [_I] * 3 + [_P],
     # meta..out, fold, planes, n, e2, sp, splits, mode bits, stream
@@ -210,12 +224,38 @@ def l2_event_sweep_batch(meta, qrank, signinq, rows, sp: int) -> torch.Tensor:
     ``rows`` [N, E2] int32; ``sp`` the rank-plane width, a multiple of 128
     above every query rank. Returns [N, 4] int32 (best, first, last, 0).
     CPU tensors take :func:`l2_event_sweep_ref`; CUDA tensors launch the
-    kernel on the current stream (no synchronisation) or raise."""
+    kernel on the current stream (no synchronisation) or raise. Above
+    ``BATCH_SP_MAX`` the planes do not fit shared memory, and every device
+    hands the sweep to :func:`l2_event_sweep_wide`."""
+    if sp > BATCH_SP_MAX:
+        return l2_event_sweep_wide(meta, qrank, signinq, rows, sp)
     check_sweep_args(meta, qrank, signinq, rows, sp)
     if meta.device.type == "cpu":
         return l2_event_sweep_ref(meta, qrank, signinq, rows, sp)
     return _sweep(l2_event_sweep_batch, "l2_sweep", meta, qrank, signinq,
                   rows, sp)
+
+
+def l2_event_sweep_wide(meta, qrank, signinq, rows, sp: int) -> torch.Tensor:
+    """The same function as :func:`l2_event_sweep_batch`, with each warp's
+    rank planes in an [N, 2, sp] int32 workspace in device memory
+    (``csrc/l2_sweep_wide.cu``): any ``sp``, at a cost per event above the
+    shared-memory kernel's. CPU tensors take :func:`l2_event_sweep_ref`;
+    CUDA tensors launch the kernel or raise."""
+    check_sweep_args(meta, qrank, signinq, rows, sp)
+    if meta.device.type == "cpu":
+        return l2_event_sweep_ref(meta, qrank, signinq, rows, sp)
+    n, e2 = qrank.shape
+    out = torch.empty((n, 4), dtype=torch.int32, device=meta.device)
+    if n == 0:
+        return out
+    planes = torch.empty((n, 2, sp), dtype=torch.int32, device=meta.device)
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr())
+    launch("l2_sweep_wide", meta.device, ptr(meta), ptr(qrank), ptr(signinq),
+           ptr(rows), ptr(out), ptr(planes), ctypes.c_int(n),
+           ctypes.c_int(e2), ctypes.c_int(sp))
+    l2_event_sweep_wide.launches += 1
+    return out
 
 
 def l2_event_sweep_rb(meta, qrank, signinq, rows, sp: int) -> torch.Tensor:
@@ -247,6 +287,7 @@ def l2_event_sweep(meta, qrank, signinq, rows, s_pad: int) -> torch.Tensor:
 
 # kernel launches since the last reset
 l2_event_sweep_batch.launches = 0
+l2_event_sweep_wide.launches = 0
 l2_event_sweep_rb.launches = 0
 l2_event_sweep.launches = 0
 

@@ -15,10 +15,12 @@ from metamaps_tpu_torch.engine import mapper_oracle
 from metamaps_tpu_torch.engine.index import SketchShard
 from metamaps_tpu_torch.engine.mapper_torch import TorchMapperEngine
 from metamaps_tpu_torch.ops.l2_sweep import (
+    BATCH_SP_MAX,
     l2_event_sweep,
     l2_event_sweep_batch,
     l2_event_sweep_rb,
     l2_event_sweep_ref,
+    l2_event_sweep_wide,
     paired_event_streams,
     random_event_streams,
 )
@@ -139,6 +141,111 @@ def test_engine_on_card_matches_oracle(cuda):
     assert l2_event_sweep_batch.launches > before
     for i, seq in enumerate(seqs):
         assert got[i] == mapper_oracle.map_read(shard, params, seq), f"read {i}"
+
+
+def _long_read_case(rng, window):
+    """Two random 100 kb genomes as one shard at k 16 and ``window``, a
+    60 kb read of the first (its start) and a 5 kb read of the second."""
+    genomes = [random_genome(rng, 100_000) for _ in range(2)]
+    shard = SketchShard()
+    parts = []
+    for i, g in enumerate(genomes):
+        h, p, s = winnow_np(g, 16, window)
+        parts.append((h, p, s, i))
+        shard.contig_names.append(f"C{i}")
+        shard.contig_lengths.append(len(g))
+    shard.finalize(parts)
+    long_read, _, start, _ = sample_reads(rng, genomes[:1], 1, min_len=60_000,
+                                          max_len=60_001, sub=0.02)[0]
+    return shard, long_read, start, revcomp(genomes[1][30_000:35_000])
+
+
+def test_long_read_at_pi75_goes_to_the_oracle(cuda, monkeypatch):
+    """A 60 kb read at --pi 75 (w = 3) sketches to ~30,000 hashes, whose
+    minimum hits (~250) are beyond the L1 detector's shift limit of 32, as
+    in the JAX engine: the read goes to the serial oracle (stubbed here: it
+    takes minutes on such a read) and nothing raises, while a read of
+    ordinary length beside it goes through the kernel."""
+    shard, long_read, _, short = _long_read_case(np.random.default_rng(60), 3)
+    params = Parameters(kmer_size=16, window_size=3, min_read_length=1000,
+                        percentage_identity=75.0)
+    assert mapper_oracle.sketch_read(long_read, 16, 3)[0].size >= BATCH_SP_MAX
+    oracle = mapper_oracle.map_read
+    stubbed = []
+    monkeypatch.setattr(
+        mapper_oracle, "map_read",
+        lambda sh, p, seq: stubbed.append(len(seq)) or [])
+    engine = TorchMapperEngine(shard, params, device="cuda")
+    before = l2_event_sweep_batch.launches
+    got = engine.map_reads([long_read, short])
+    torch.cuda.synchronize()
+    assert engine.stats["oracle_fallbacks"] == 1
+    assert stubbed == [len(long_read)] and got[0] == []
+    assert l2_event_sweep_batch.launches > before
+    assert got[1] == oracle(shard, params, short)
+
+
+def test_long_read_sweeps_wide_on_the_card(cuda):
+    """The same 60 kb read at --pi 60 (minimum hits ~19) reaches L2: its
+    slab's planes (sp 30,080 or so) are wider than BATCH_SP_MAX, so the
+    sweep runs on the wide kernel, bit for bit the plain version on the
+    read's real slab, and the read maps where it was drawn, with no oracle
+    fallback."""
+    shard, long_read, start, short = _long_read_case(
+        np.random.default_rng(61), 3)
+    params = Parameters(kmer_size=16, window_size=3, min_read_length=1000,
+                        percentage_identity=60.0)
+    engine = TorchMapperEngine(shard, params, device="cuda")
+    before = (l2_event_sweep_wide.launches, l2_event_sweep_batch.launches)
+    got = engine.map_reads([long_read, short])
+    torch.cuda.synchronize()
+    assert engine.stats["oracle_fallbacks"] == 0
+    assert l2_event_sweep_wide.launches > before[0]
+    assert l2_event_sweep_batch.launches > before[1]
+    assert got[1] == mapper_oracle.map_read(shard, params, short)
+    best = max(got[0], key=lambda m: m.conserved)
+    assert best.ref_seqid == 0 and abs(best.ref_start - start) < 3000
+    assert best.nuc_identity > 80
+    slabs = engine.l2_slab_setups([long_read])
+    assert slabs and all(sp > BATCH_SP_MAX for _, sp in slabs)
+    for st, sp in slabs:
+        arrs = (st.meta, st.qrank, st.signinq, st.rows)
+        got_sweep = l2_event_sweep_wide(*arrs, sp)
+        assert torch.equal(got_sweep, l2_event_sweep_ref(*arrs, sp))
+
+
+@pytest.mark.parametrize("flip", [None, 0.0, 0.04],
+                         ids=["random", "paired", "mixed"])
+@pytest.mark.parametrize("sp,e2,seed", [(1280, 600, 0), (28928, 300, 1),
+                                        (41088, 200, 2)])
+def test_wide_kernel_equals_plain(cuda, sp, e2, seed, flip):
+    """Planes in device memory: at a width the shared-memory kernel also
+    takes, just above BATCH_SP_MAX, and at the widest bucket's plane; 37
+    candidates leave a partial block of 8 warps."""
+    rng = np.random.default_rng(seed)
+    arrs = (random_event_streams(rng, 37, e2, sp - 1) if flip is None
+            else paired_event_streams(rng, 37, e2, sp - 1, flip=flip))
+    cpu = [torch.from_numpy(a) for a in arrs]
+    before = l2_event_sweep_wide.launches
+    got = l2_event_sweep_wide(*[a.to(cuda) for a in cpu], sp)
+    torch.cuda.synchronize()
+    assert l2_event_sweep_wide.launches == before + 1
+    assert torch.equal(got.cpu(), l2_event_sweep_ref(*cpu, sp))
+
+
+def test_batch_sweep_hands_wide_planes_on(cuda):
+    """Above BATCH_SP_MAX the batch wrapper launches the wide kernel (its
+    count, not the batch kernel's); at BATCH_SP_MAX its own."""
+    arrs = [torch.from_numpy(a).to(cuda) for a in random_event_streams(
+        np.random.default_rng(7), 9, 100, 1000)]
+    for sp, kernel in ((BATCH_SP_MAX, "batch"), (BATCH_SP_MAX + 128, "wide")):
+        before = (l2_event_sweep_batch.launches, l2_event_sweep_wide.launches)
+        got = l2_event_sweep_batch(*arrs, sp)
+        torch.cuda.synchronize()
+        after = (l2_event_sweep_batch.launches, l2_event_sweep_wide.launches)
+        assert [b - a for a, b in zip(before, after)] == (
+            [1, 0] if kernel == "batch" else [0, 1])
+        assert torch.equal(got, l2_event_sweep_ref(*arrs, sp))
 
 
 @pytest.mark.parametrize("sp,e2,seed", [(128, 300, 0), (1152, 700, 1),
@@ -284,11 +391,12 @@ def test_variant_wrappers_reject_bad_widths(cuda):
     torch.cuda.synchronize()
 
 
-@pytest.mark.parametrize("name", ["batch", "rb", "eager", "parts"])
+@pytest.mark.parametrize("name", ["batch", "rb", "eager", "parts", "wide"])
 def test_empty_input_launches_nothing(cuda, name):
     """N = 0 candidates: an empty result, no kernel launched, no count."""
     wrapper, width = {
         "batch": (l2_event_sweep_batch, (1152,)),
+        "wide": (l2_event_sweep_wide, (28928,)),
         "rb": (l2_event_sweep_rb, (1152,)),
         "eager": (l2_event_sweep, (2048,)),
         "parts": (l2_sweep_parts, (1152, "cmsf")),

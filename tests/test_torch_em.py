@@ -145,9 +145,15 @@ def test_classify_raises_without_cuda(mini, tmp_path):
 
 
 def test_unported_subcommands_refuse(capsys):
-    assert port_cli_main(["classifyU", "--DB", "x", "--mappings", "y"]) == 2
-    assert port_cli_main(["mapAgainstIndex"]) == 2
+    """Subcommands the port lacks refuse; the five core ones are ported."""
+    from metamaps_tpu_torch.cli import NOT_PORTED
+
+    assert port_cli_main(["selfSimilarity", "--DB", "x"]) == 2
+    assert port_cli_main(["synthDB"]) == 2
     assert "not ported yet" in capsys.readouterr().err
+    for name in ("index", "mapDirectly", "mapAgainstIndex", "classify",
+                 "classifyU"):
+        assert name not in NOT_PORTED
 
 
 def test_em_bench_round_matches_jax_on_cpu():

@@ -1,6 +1,7 @@
 """The port stands alone: with ``jax``, ``jaxlib`` and the JAX package
 ``metamaps_tpu`` blocked on ``sys.meta_path``, every ``metamaps_tpu_torch``
-module and ``chip_smoke.py`` import, and ``mapDirectly`` + ``classify`` run
+module and ``chip_smoke.py`` import, and ``mapDirectly`` + ``classify``,
+then ``index`` -> ``mapAgainstIndex`` -> ``classify`` -> ``classifyU``, run
 through the port's CLI on a tiny database (torch engine and EM rounds on
 the CPU)."""
 import os
@@ -63,6 +64,28 @@ SCRIPT = textwrap.dedent(
     assert meta["ReadsMapped"] == 6, meta
     assert stats["l2_candidates"] > 0 and stats["oracle_fallbacks"] == 0, stats
     assert os.path.getsize(out + ".EM.WIMP") > 0
+
+    with open(os.path.join(db, "selfSimilarities.txt"), "w") as f:
+        for rl in (2000, 5000):
+            for idty, p in ((84, 0.2), (88, 0.6), (92, 0.2)):
+                f.write(f"100\\t{rl}\\t{idty}\\t{p}\\t\\n")
+    idx = os.path.join(root, "idx")
+    out2 = os.path.join(root, "out2")
+    assert main(["index", "--reference", os.path.join(db, "DB.fa"),
+                 "--index", idx, "--minReadLen", "1000"]) == 0
+    stats = {}
+    assert main(["mapAgainstIndex", "--index", idx, "--query", fq,
+                 "--output", out2, "--all", "--mapping-engine", "torch",
+                 "--device", "cpu"], engine_stats=stats) == 0
+    assert len(stats["shard_load_s"]) == 1, stats
+    assert stats["oracle_fallbacks"] == 0, stats
+    assert read_meta(out2) == meta
+    assert main(["classify", "--DB", db, "--mappings", out2, "--minreads",
+                 "2", "--device", "cpu"]) == 0
+    assert main(["classifyU", "--DB", db, "--mappings", out2, "--minreads",
+                 "2"]) == 0
+    for suffix in (".mapQ_U", ".U.WIMP", ".U.reads2Taxon", ".EM2U.summary"):
+        assert os.path.getsize(out2 + suffix) > 0, suffix
     assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
     print("ok")
     """
