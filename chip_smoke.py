@@ -57,11 +57,15 @@ Phases (each prints its wall seconds; any failure exits non-zero):
    against that genome: its sketch (~31,000 hashes) is wider than the batch
    kernel's shared-memory planes take (``BATCH_SP_MAX``), and its minimum
    hits (~19) stay within the L1 detector's shift limit, so its slab is
-   swept on the card by the wide kernel (planes in device memory); checks:
-   the wide kernel ran, no oracle fallback, the read maps where it was
-   drawn, and the wide kernel equals its plain version bit for bit on the
-   read's real slab and on random and paired streams at widths up to the
-   widest bucket's plane;
+   swept on the card by the wide kernel (planes in device memory, each
+   candidate's events split into chunks swept at once); checks: the wide
+   kernel ran, no oracle fallback, the read maps where it was drawn, and
+   the wide kernel equals its plain version bit for bit on the read's real
+   slab and on random and paired streams at widths up to the widest
+   bucket's plane, and its own default output at two forced chunk
+   lengths; for the record, the batch and wide kernels on one
+   setup-shaped candidate of 150,000 events at sp = BATCH_SP_MAX (equal
+   outputs, both times);
 10. summary: reads/s of both mapping paths, classify seconds, peak device
    memory, then the card line, the kernel JSON line and the final JSON
    line.
@@ -100,6 +104,7 @@ from metamaps_tpu_torch.io.mappings import (MappingLine, parse_mapping_line,
 from metamaps_tpu_torch.io.native import winnow_native
 from metamaps_tpu_torch.ops import l1, l2_sweep, l2_sweep_parts
 from metamaps_tpu_torch.profiling import em_bench, sweep_bench
+from metamaps_tpu_torch.profiling.sweep_ab import LONG_READ, LONG_READ_ARGS
 from metamaps_tpu_torch.sim.synth_db import ont_read, write_synth_db_dir
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -117,12 +122,14 @@ U_FILES = (".mapQ_U", ".U.WIMP", ".U.WIMP.absoluteClassifiedAt",
            ".U.reads2Taxon", ".U.lengthAndIdentitiesPerTaxonID",
            ".U.shiftedHistogramsPerTaxonID", ".EM2U.details", ".EM2U.summary")
 SAMPLE_PARTS = 8  # files (and oracle worker processes) of the sample
-LONG_READ = 62_000  # bp: at w = 3 its planes are wider than BATCH_SP_MAX
-# at --pi 60 the minimum hits of a ~31,000-hash sketch (~19) are within the
-# L1 detector's shift limit (32), so the read reaches the sweep; at --pi 75
-# (~250) it would go to the serial oracle in both packages' engines
-LONG_READ_ARGS = ["--pi", "60", "--window", "3"]
+# LONG_READ (62 kb): at w = 3 its planes are wider than BATCH_SP_MAX; at
+# LONG_READ_ARGS' --pi 60 the minimum hits of a ~31,000-hash sketch (~19)
+# are within the L1 detector's shift limit (32), so the read reaches the
+# sweep; at --pi 75 (~250) it would go to the serial oracle in both
+# packages' engines
 WIDE_STREAM_WIDTHS = (28928, 41088)  # just above BATCH_SP_MAX; widest bucket
+WIDE_FORCED_CHUNKS = (256, 2048)  # chunk lengths held against the default
+SETUP_EVENTS = 150_000  # one setup-shaped candidate at sp = BATCH_SP_MAX
 # --minreads of classify and classifyU: U fits its identity model on a
 # contig with more assigned reads than this (the default, 10000, is a real
 # sample's); 4096 reads put ~110 on each of the 36 genomes
@@ -194,11 +201,12 @@ class Phase:
         return False
 
 
-def compare(label, fn, ref, arrs, *width, timed: dict = None):
+def compare(label, fn, ref, arrs, *width, timed: dict = None, locate=None):
     """A kernel wrapper ``fn`` against its plain version ``ref`` on the same
     CUDA tensors; returns the max abs difference. Exact int32 arithmetic:
     any difference fails. ``timed``, when given, gets the plain call's
-    milliseconds by CUDA events (``plain_ms``)."""
+    milliseconds by CUDA events (``plain_ms``); ``locate(got, want)``, when
+    given, says where a difference comes from before the failure."""
     got = fn(*arrs, *width)
     torch.cuda.synchronize()
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -214,6 +222,8 @@ def compare(label, fn, ref, arrs, *width, timed: dict = None):
     log(f"{fn.__name__} vs plain, {label}: N={n} E2={e2} "
         f"width={list(width)} max_abs_err={err}")
     if err != 0 or not torch.equal(got, want):
+        if locate is not None:
+            log(f"{fn.__name__} on {label}: {locate(got, want)}")
         raise AssertionError(f"{fn.__name__} differs from plain on {label}")
     return err
 
@@ -491,15 +501,58 @@ def long_read(run: dict, times: dict, card: str, counters, dev,
         slabs = engine.l2_slab_setups([run["read"]])
         errs = []
         timed: dict = {}  # the plain version takes ~90 s on this slab: once
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
         for i, (st, sp) in enumerate(slabs):
             arrs = [t.contiguous() for t in (st.meta, st.qrank, st.signinq,
                                              st.rows)]
             if sp <= l2_sweep.BATCH_SP_MAX:
                 raise AssertionError(f"long-read slab {i}: sp {sp}")
-            errs.append(compare(f"long-read slab {i}", wide, ref, arrs, sp,
+            plan = l2_sweep.wide_plan(*arrs[1].shape, sp, sms)
+
+            def locate(got, want, arrs=arrs, sp=sp, L=plan[0]):
+                """Whether the split itself or its kernel differs."""
+                split = l2_sweep.l2_event_sweep_split_ref(*arrs, sp, L)
+                verb = lambda a, b: "equals" if torch.equal(a, b) else \
+                    "differs from"
+                return (f"the split's plain model at L={L} "
+                        f"{verb(split, want)} the plain version, the kernel "
+                        f"{verb(got, split)} the model")
+
+            errs.append(compare(f"long-read slab {i} (L, P, W, G = {plan})",
+                                wide, ref, arrs, sp, locate=locate,
                                 timed=timed if i == 0 else None))
             if i == 0:
-                slab0 = (arrs, sp)
+                slab0 = (arrs, sp, plan)
+        # the same slab at other chunk lengths, kernel against kernel
+        arrs, sp, plan = slab0
+        default_out = wide(*arrs, sp)
+        chunk_ms = {}
+        for L in WIDE_FORCED_CHUNKS:
+            if not torch.equal(wide(*arrs, sp, chunk_events=L), default_out):
+                raise AssertionError(f"the wide kernel at L={L} differs from "
+                                     f"its default L={plan[0]} on the long "
+                                     "read's slab")
+            chunk_ms[L] = sweep_bench.time_ms(
+                lambda: wide(*arrs, sp, chunk_events=L), dev, 5)
+        log(f"long-read slab 0 at forced chunk lengths, ms: {chunk_ms}; "
+            f"outputs equal to the default L={plan[0]}'s")
+        # for the record: one setup-shaped candidate at the widest plane the
+        # batch kernel takes, through both kernels
+        sp_b = l2_sweep.BATCH_SP_MAX
+        host = l2_sweep.long_event_stream(np.random.default_rng(sp_b),
+                                          SETUP_EVENTS, sp_b - 1)
+        arrs_b = [torch.from_numpy(a).to(dev) for a in host]
+        batch = l2_sweep.l2_event_sweep_batch
+        if not torch.equal(batch(*arrs_b, sp_b), wide(*arrs_b, sp_b)):
+            raise AssertionError(f"the batch and wide kernels differ on a "
+                                 f"setup-shaped 1 x {SETUP_EVENTS} stream")
+        at_batch_sp = dict(
+            events=SETUP_EVENTS, sp=sp_b,
+            plan=l2_sweep.wide_plan(1, SETUP_EVENTS, sp_b, sms),
+            batch_ms=sweep_bench.time_ms(lambda: batch(*arrs_b, sp_b), dev, 3),
+            wide_ms=sweep_bench.time_ms(lambda: wide(*arrs_b, sp_b), dev, 3))
+        log("setup-shaped candidate at sp = BATCH_SP_MAX, batch and wide "
+            f"kernels equal: {json.dumps(at_batch_sp)}")
         for sp_r in WIDE_STREAM_WIDTHS:
             for kind, flip in (("random", None), ("paired", 0.0),
                                ("mixed", 0.04)):
@@ -510,12 +563,16 @@ def long_read(run: dict, times: dict, card: str, counters, dev,
                 errs.append(compare(
                     f"{kind} sp={sp_r}", wide, ref,
                     [torch.from_numpy(a).to(dev) for a in host], sp_r))
-        arrs, sp = slab0
         row = kernel_entry(
             wide.__name__, "metamaps_tpu_torch/csrc/l2_sweep_wide.cu",
             "metamaps_tpu/ops/l2_pallas.py:116", arrs, (sp,), clock_mhz,
             max(errs), wide, ref, sp=sp, plain_ms=timed["plain_ms"],
-            scenario="long-read slab 0", plain_calls=1)
+            scenario="long-read slab 0", plain_calls=1,
+            sources=["metamaps_tpu_torch/csrc/l2_sweep_wide.cu",
+                     "metamaps_tpu_torch/csrc/l2_sweep_common.cuh"],
+            plan=dict(zip(("L", "P", "W", "G"), plan)),
+            workspace_bytes=plan[3] * plan[2] * 8 * sp,
+            ms_by_chunk=chunk_ms, at_batch_sp=at_batch_sp)
         row["launches"] = launches[wide.__name__]
         del engine, shards
     return info, row

@@ -9,6 +9,8 @@
 //     entry and its exit;
 //   - fold_tile and combine: a warp's fold of a tile's lazily closed
 //     segments, off the serial chain;
+//   - sweep_events: one warp's tile loop over a run of one candidate's
+//     events, from a state the caller gives (l2_sweep_wide.cu's chunks);
 //   - sweep_warp: one warp's sweep of one candidate, from its meta row to
 //     its output, with planes of type T (int or short).
 // l2_sweep_eager.cu uses the lane chain and the warp's mode switches, with
@@ -332,32 +334,24 @@ __device__ __forceinline__ void recount_event(int* tile, int t, T* plane,
   if (lane == 0) tile[4 * t + 2] = shared;
 }
 
-// One warp sweeps candidate `cand` (meta row, E2 events from cand * e2)
-// and writes its output row. `plane` and `m_plane` are the warp's two rank
-// planes of sp elements of T (in shared memory, or in device memory in
-// l2_sweep_wide.cu), `tiles` its two tiles of TILE 16-byte entries in
-// shared memory (16-byte aligned). Tile k + 1 is in
-// flight while tile k is swept: lane 0's chain in incremental mode, the
-// warp's recount otherwise; then the warp folds tile k.
+// One warp sweeps the n_ev events of one candidate that start at index
+// `base` of qrank / signinq / rows, from a state that the caller holds:
+// the planes as they are, shared / neg / J / cj1 (in every lane on entry;
+// in incremental mode only lane 0's are kept up), p_carry and s_carry the
+// highest row and the count before the first event (every lane's), and
+// the fold so far (lane 0's). Each comes back past the last event; nothing
+// is closed after it. Tile k + 1 is in flight while tile k is swept: lane
+// 0's chain in incremental mode, the warp's recount otherwise; then the
+// warp folds tile k. sweep_warp runs it over a whole candidate,
+// l2_sweep_wide.cu over one chunk of a candidate's events at a time.
 template <typename T>
-__device__ __forceinline__ void sweep_warp(const int* __restrict__ meta,
-                                           const int* __restrict__ qrank,
-                                           const int* __restrict__ signinq,
-                                           const int* __restrict__ rows,
-                                           int* __restrict__ out, int cand,
-                                           int e2, int sp, T* plane,
-                                           T* m_plane, int* tiles, int lane) {
-  const int s = meta[4 * cand + 0];
-  const int row_lo = meta[4 * cand + 1];
-  const int row_hi = meta[4 * cand + 2];
-  const int n_ev = max(0, min(meta[4 * cand + 3], e2));
-  const long long base = (long long)cand * e2;
+__device__ __forceinline__ void sweep_events(
+    const int* __restrict__ qrank, const int* __restrict__ signinq,
+    const int* __restrict__ rows, long long base, int n_ev, int s,
+    int row_lo, int row_hi, int sp, T* plane, T* m_plane, int* tiles,
+    int lane, int& shared, int& neg, int& J, int& cj1, int& p_carry,
+    int& s_carry, int& best, int& first, int& last) {
   const int n_tiles = (n_ev + TILE - 1) / TILE;
-
-  for (int j = lane; j < sp; j += 32) {
-    plane[j] = 0;
-    m_plane[j] = 0;
-  }
   // Start copying tile k into its buffer; one commit group per tile (an
   // empty one past the last), so that "all but one group" is the tile
   // before.
@@ -368,17 +362,11 @@ __device__ __forceinline__ void sweep_warp(const int* __restrict__ meta,
     }
     cp_async_commit();
   };
-
-  int best = 0, first = -1, last = -1;  // the optimum: lane 0's
-  int p_carry = INT_MIN, s_carry = 0;   // highest row and count so far
-  int shared = 0;  // lane 0's in incremental mode, every lane's in recount
-  int J = min(max(s, 0), sp), cj1 = 0;  // prefix end and C[J-1]: lane 0's
-  int neg = 0;                          // ranks with r < 0, every lane's
   stage(0);
   for (int k = 0; k < n_tiles; ++k) {
     stage(k + 1);
     cp_async_wait_one();
-    __syncwarp();  // tile k (and the zeroed planes) visible to every lane
+    __syncwarp();  // tile k (and the caller's planes) visible to every lane
     int* tile = tiles + (k & 1) * 4 * TILE;
     const int nt = min(TILE, n_ev - k * TILE);
     decode_tile(tile, nt, sp, lane);
@@ -409,6 +397,39 @@ __device__ __forceinline__ void sweep_warp(const int* __restrict__ meta,
               last);
     __syncwarp();  // tile k consumed before stage(k + 2) refills its buffer
   }
+}
+
+// One warp sweeps candidate `cand` (meta row, E2 events from cand * e2)
+// and writes its output row. `plane` and `m_plane` are the warp's two rank
+// planes of sp elements of T (in shared memory, or in device memory in
+// l2_sweep_wide.cu), `tiles` its two tiles of TILE 16-byte entries in
+// shared memory (16-byte aligned): sweep_events from zeroed planes, then
+// the trailing close.
+template <typename T>
+__device__ __forceinline__ void sweep_warp(const int* __restrict__ meta,
+                                           const int* __restrict__ qrank,
+                                           const int* __restrict__ signinq,
+                                           const int* __restrict__ rows,
+                                           int* __restrict__ out, int cand,
+                                           int e2, int sp, T* plane,
+                                           T* m_plane, int* tiles, int lane) {
+  const int s = meta[4 * cand + 0];
+  const int row_lo = meta[4 * cand + 1];
+  const int row_hi = meta[4 * cand + 2];
+  const int n_ev = max(0, min(meta[4 * cand + 3], e2));
+
+  for (int j = lane; j < sp; j += 32) {
+    plane[j] = 0;
+    m_plane[j] = 0;
+  }
+  int best = 0, first = -1, last = -1;  // the optimum: lane 0's
+  int p_carry = INT_MIN, s_carry = 0;   // highest row and count so far
+  int shared = 0;  // lane 0's in incremental mode, every lane's in recount
+  int J = min(max(s, 0), sp), cj1 = 0;  // prefix end and C[J-1]: lane 0's
+  int neg = 0;                          // ranks with r < 0, every lane's
+  sweep_events(qrank, signinq, rows, (long long)cand * e2, n_ev, s, row_lo,
+               row_hi, sp, plane, m_plane, tiles, lane, shared, neg, J, cj1,
+               p_carry, s_carry, best, first, last);
   if (lane == 0) {
     fold(s_carry, max(p_carry, row_lo), row_hi, best, first, last);
     out[4 * cand + 0] = best;

@@ -20,9 +20,12 @@ from metamaps_tpu_torch.ops.l2_sweep import (
     l2_event_sweep_batch,
     l2_event_sweep_rb,
     l2_event_sweep_ref,
+    l2_event_sweep_split_ref,
     l2_event_sweep_wide,
+    long_event_stream,
     paired_event_streams,
     random_event_streams,
+    wide_plan,
 )
 from metamaps_tpu_torch.ops.l2_sweep_parts import (
     l2_sweep_parts,
@@ -231,6 +234,63 @@ def test_wide_kernel_equals_plain(cuda, sp, e2, seed, flip):
     torch.cuda.synchronize()
     assert l2_event_sweep_wide.launches == before + 1
     assert torch.equal(got.cpu(), l2_event_sweep_ref(*cpu, sp))
+
+
+# long streams that the wide kernel splits: (sp, E2, kind); each kind at
+# both widths, E2 from 4,096 to 20,000, 1-3 candidates
+LONG_WIDE = [(sp, e2, kind) for sp in (28928, 41088)
+             for e2, kind in ((4096, "random"), (20000, "paired"),
+                              (12000, "mixed"))]
+_long_wide_cache: dict = {}
+
+
+def _long_wide(cuda, sp, e2, kind):
+    """A long stream on the card and the plain version's output on it,
+    computed once per stream: 3 random-sign candidates (the first empty),
+    or one paired / mixed candidate of E2 events and an empty one."""
+    key = (sp, e2, kind)
+    if key not in _long_wide_cache:
+        rng = np.random.default_rng(e2 + sp)
+        if kind == "random":  # every candidate's rows all scored
+            arrs = random_event_streams(rng, 3, e2, sp - 1, row_span=e2)
+            arrs[0][:, 1:3] = (-100, e2 + 100)
+        else:
+            one = long_event_stream(rng, e2, sp - 1,
+                                    flip=0.04 if kind == "mixed" else 0.0)
+            arrs = [np.concatenate([a, np.zeros_like(a)]) for a in one]
+        dev = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+               for a in arrs]
+        _long_wide_cache[key] = dev, l2_event_sweep_ref(*dev, sp)
+    return _long_wide_cache[key]
+
+
+@pytest.mark.parametrize("chunk", [1, 63, 64, 65, None],
+                         ids=["L1", "L63", "L64", "L65", "default"])
+@pytest.mark.parametrize("sp,e2,kind", LONG_WIDE)
+def test_wide_kernel_equals_plain_on_long_streams(cuda, sp, e2, kind, chunk):
+    """Streams long enough to be split into many chunks, at every forced
+    chunk length and the default one (L = 1 sweeps in windows of chunks:
+    its chunks' planes exceed the workspace cap). One launch per call."""
+    dev, want = _long_wide(cuda, sp, e2, kind)
+    L, P, W, G = wide_plan(dev[1].shape[0], e2, sp,
+                           torch.cuda.get_device_properties(cuda)
+                           .multi_processor_count, chunk)
+    assert P > 1 and (chunk != 1 or W < P)
+    before = l2_event_sweep_wide.launches
+    got = l2_event_sweep_wide(*dev, sp, chunk_events=chunk)
+    torch.cuda.synchronize()
+    assert l2_event_sweep_wide.launches == before + 1
+    assert torch.equal(got, want)
+    assert int(want[:, 0].max()) > 0
+
+
+def test_split_ref_equals_plain_on_the_card(cuda):
+    """The decomposition's plain model on the card, at the default chunk
+    length of a long mixed stream, as the smoke uses it to locate a
+    mismatch."""
+    dev, want = _long_wide(cuda, 28928, 12000, "mixed")
+    L = wide_plan(2, 12000, 28928, 132)[0]
+    assert torch.equal(l2_event_sweep_split_ref(*dev, 28928, L), want)
 
 
 def test_batch_sweep_hands_wide_planes_on(cuda):

@@ -86,13 +86,16 @@ def _combine_lanes(lanes):
     return lanes[0]
 
 
-def fold_tiles(rows, counts, row_lo, row_hi):
+def fold_tiles(rows, counts, row_lo, row_hi, prev=I32_MIN, before=0,
+               trailing=True):
     """The kernel's fold of one candidate from each event's row and the
     count after it: per tile, lane l folds events 2l and 2l + 1 from (0, -1,
     -1) (the highest row before each from a max-scan), the lanes' folds
     combine by a shuffle-down tree, and the tile's fold combines onto the
-    running one; then the trailing close at row_hi."""
-    acc, prev, before = (0, -1, -1), I32_MIN, 0
+    running one; then the trailing close at row_hi. ``prev`` and
+    ``before`` are the highest row and the count before the first event;
+    without ``trailing`` the fold stops after the last event's segment."""
+    acc = (0, -1, -1)
     for t0 in range(0, len(rows), TILE):
         r, c = rows[t0:t0 + TILE], counts[t0:t0 + TILE]
         high = np.maximum.accumulate([prev] + r)  # high[i]: before event i
@@ -106,7 +109,48 @@ def fold_tiles(rows, counts, row_lo, row_hi):
             lanes.append(part)
         acc = _combine(acc, _combine_lanes(lanes))
         prev, before = int(high[-1]), c[-1]
+    if not trailing:
+        return acc
     return _close(acc, prev, row_hi + 1, row_lo, row_hi, before)
+
+
+def fold_chunks(rows, counts, row_lo, row_hi, chunk):
+    """The wide kernel's fold (csrc/l2_sweep_wide.cu): each chunk of
+    ``chunk`` events folds its own tiles from (0, -1, -1), from the highest
+    row and the count before it; a warp combines the chunks' folds, lane l
+    a contiguous run of ceil(chunks / 32) of them in order, then the lanes
+    by the shuffle-down tree; the last chunk's carries close the trailing
+    segment."""
+    folds, prev, before = [], I32_MIN, 0
+    for e0 in range(0, max(len(rows), 1), chunk):
+        r, c = rows[e0:e0 + chunk], counts[e0:e0 + chunk]
+        folds.append(fold_tiles(r, c, row_lo, row_hi, prev, before,
+                                trailing=False))
+        prev, before = max([prev] + r), (c[-1] if c else before)
+    per = -(-len(folds) // 32)
+    lanes = []
+    for lane in range(32):
+        part = (0, -1, -1)
+        for f in folds[lane * per:(lane + 1) * per]:
+            part = _combine(part, f)
+        lanes.append(part)
+    acc = _combine((0, -1, -1), _combine_lanes(lanes))
+    return _close(acc, prev, row_hi + 1, row_lo, row_hi, before)
+
+
+def chunk_state(r, m, s):
+    """The wide kernel's state at a chunk's start from its start planes (r
+    and M as multiplicities), as its block derives it: the count of
+    negative ranks, then the count, J (the passing ranks) and C[J - 1]
+    from the prefix C; the plane the chain starts on is C where a rank is
+    negative (recount mode), else r."""
+    neg = int((r < 0).sum())
+    cplane = np.cumsum(r)
+    passing = np.arange(len(r)) + cplane < s
+    J = int(passing.sum())
+    cj1 = int(cplane[J - 1]) if J else 0
+    shared = int(((m > 0) & passing).sum())
+    return (cplane if neg else r.copy()), shared, neg, J, cj1
 
 
 def fold_tiles_eager(rows, counts, row_lo, row_hi):
@@ -132,10 +176,15 @@ def fold_tiles_eager(rows, counts, row_lo, row_hi):
     return acc
 
 
-def model_sweep(meta, qrank, signinq, rows, sp, warps=1, eager=False):
+def model_sweep(meta, qrank, signinq, rows, sp, warps=1, eager=False,
+                chunk=None):
     """The kernels' sweep on numpy inputs: the warp's recount (``warps`` 1:
     l2_sweep.cu, l2_sweep_rb.cu) or a block's of 32 * ``warps`` threads,
-    the lazy fold or the eager one (l2_sweep_eager.cu). Returns ([N, 4]
+    the lazy fold or the eager one (l2_sweep_eager.cu). With ``chunk`` the
+    events are the wide kernel's chunks of that many events: at each
+    chunk's first event the chain drops its state and starts again from
+    what :func:`chunk_state` derives from the planes (r, as the scan leaves
+    them), and the fold is :func:`fold_chunks`. Returns ([N, 4]
     int32 output, per-candidate recount-event counts, mode entries, mode
     exits, the largest |value| a plane held over the candidate's swept
     events, at most)."""
@@ -167,6 +216,9 @@ def model_sweep(meta, qrank, signinq, rows, sp, warps=1, eager=False):
             return int(per_thread.reshape(warps, 32).sum(axis=1).sum())
 
         for e in range(n_ev):
+            if chunk and e and e % chunk == 0:  # a chunk's block starts
+                r = plane if neg == 0 else np.diff(plane, prepend=0)
+                plane, shared, neg, J, cj1 = chunk_state(r, m, s)
             qr, si = int(qrank[c, e]), int(signinq[c, e])
             sign = (si > 0) - (si < 0)
             inq = si in (2, -2)
@@ -224,9 +276,13 @@ def model_sweep(meta, qrank, signinq, rows, sp, warps=1, eager=False):
                         held(plane)
             recount_events[c] += int(neg > 0)
             counts.append(shared)
-        fold = fold_tiles_eager if eager else fold_tiles
-        out[c] = (*fold([int(v) for v in rows[c, :n_ev]], counts, row_lo,
-                        row_hi), 0)
+        row_list = [int(v) for v in rows[c, :n_ev]]
+        if chunk:
+            out[c] = (*fold_chunks(row_list, counts, row_lo, row_hi, chunk),
+                      0)
+        else:
+            fold = fold_tiles_eager if eager else fold_tiles
+            out[c] = (*fold(row_list, counts, row_lo, row_hi), 0)
         if n_ev:
             peak = max(peak, high / n_ev)
     return out, recount_events, entries, exits, peak
