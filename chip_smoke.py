@@ -66,7 +66,27 @@ Phases (each prints its wall seconds; any failure exits non-zero):
    lengths; for the record, the batch and wide kernels on one
    setup-shaped candidate of 150,000 events at sp = BATCH_SP_MAX (equal
    outputs, both times);
-10. summary: reads/s of both mapping paths, classify seconds, peak device
+10. mesh: the multi-device spatial path on eight ranks of the one card
+   (``ShardedMapperEngine`` at shard=4,data=2 on the phase-4 index: four
+   contig blocks, each block's tables on two ranks), each block through
+   the shard loop's writer into its own file, then ``unify_files`` (first the same code on one rank of
+   the whole index, for the time within this call and phase 4's bytes);
+   checks: the batch sweep kernel ran,
+   oracle fallbacks <= 1% of mappable reads, >= 90% of reads mapped, .meta
+   adds up, a 64-read sample gives byte-identical mapping and .meta files
+   with the serial oracle over the same four partitions (the shard loop's
+   writer with its oracle engine per partition, then unify; eight worker
+   processes, one per partition and half-sample), device
+   memory back at its level before the phase; for the record the lines
+   that differ from the phase-4 output (a block's own frequency threshold
+   can differ from the whole index's), seconds, reads/s, peak memory and
+   device table bytes; then ``mapDirectly --mesh shard=1,data=1`` through
+   the CLI on the long read's reference equals phase 9's bytes, and
+   ``classify --emBackend sharded`` (through the CLI: one rank on the one
+   card; and over four ranks of it) writes the ``--emBackend numpy``
+   bytes in all seven .EM* files (the sharded round's time at 1M and 12M
+   lines is in phase 5's em_bench rows);
+11. summary: reads/s of every mapping path, classify seconds, peak device
    memory, then the card line, the kernel JSON line and the final JSON
    line.
 """
@@ -103,6 +123,11 @@ from metamaps_tpu_torch.io.mappings import (MappingLine, parse_mapping_line,
                                             read_meta)
 from metamaps_tpu_torch.io.native import winnow_native
 from metamaps_tpu_torch.ops import l1, l2_sweep, l2_sweep_parts
+from metamaps_tpu_torch.engine.mapwrap import (map_query_file_against_shard,
+                                               unify_query_file)
+from metamaps_tpu_torch.parallel.sharded_engine import (ShardedMapperEngine,
+                                                        map_query_file_sharded)
+from metamaps_tpu_torch.params import Parameters
 from metamaps_tpu_torch.profiling import em_bench, sweep_bench
 from metamaps_tpu_torch.profiling.sweep_ab import LONG_READ, LONG_READ_ARGS
 from metamaps_tpu_torch.sim.synth_db import ont_read, write_synth_db_dir
@@ -134,6 +159,13 @@ SETUP_EVENTS = 150_000  # one setup-shaped candidate at sp = BATCH_SP_MAX
 # contig with more assigned reads than this (the default, 10000, is a real
 # sample's); 4096 reads put ~110 on each of the 36 genomes
 U_MIN_READS = "50"
+MESH = (4, 2)  # shard, data: eight ranks on the one card
+# reads per rank per chunk: global chunks of 1024 reads, the single-device
+# engine's CHUNK (the CLI's default of 32 is the JAX package's)
+MESH_ROWS = 512
+MESH_ORACLE_WORKERS = 2  # worker processes per partition for the sample,
+# each mapping its share of the sample's reads
+EM_SHARDED_RANKS = 4
 
 # the serial oracle takes seconds per read at this database size, so the
 # sample is mapped by a pool of spawned workers that load the shard from disk
@@ -148,6 +180,13 @@ def _oracle_worker_init(shard_path: str, params) -> None:
 def _oracle_map(seq):
     return mapper_oracle.map_read(_worker_state["shard"],
                                   _worker_state["params"], seq)
+
+
+def _oracle_part_worker(part_path: str, params, query: str, out: str):
+    """The shard loop's writer with the serial oracle engine, for one
+    partition stored at ``part_path``, in a spawned worker process."""
+    map_query_file_against_shard(SketchShard.load(part_path), params, query,
+                                 out, engine="oracle")
 
 
 def _cli_worker(argv):
@@ -578,6 +617,212 @@ def long_read(run: dict, times: dict, card: str, counters, dev,
     return info, row
 
 
+def mesh_phase(args, times: dict, db: str, fq: str, reads, shard, params,
+               out_single: str, card: str, counters, dev) -> dict:
+    """Map ``fq`` with ``ShardedMapperEngine`` at ``MESH`` on ranks of
+    ``dev`` over the main path's index ``shard``, check the run, and hold a
+    sample against the serial oracle on the same partitions. Returns the
+    numbers of the run."""
+    n_shard, n_data = MESH
+    params = Parameters(**{**params.__dict__})
+    params.report_all = True  # the main path's --all
+    out_mesh = os.path.join(args.workdir, "mesh", "out")
+    os.makedirs(os.path.dirname(out_mesh), exist_ok=True)
+    # the same code on one rank of the whole index first: what the
+    # partition costs, within this call, and the phase-4 bytes
+    out_1x1 = os.path.join(args.workdir, "mesh", "out_1x1")
+    stats_1x1: dict = {}
+    l1._MINHITS.clear()
+    with Phase("mesh_1x1", times):
+        engine = ShardedMapperEngine(shard, params, 1, 1,
+                                     rows_per_device=MESH_ROWS * n_data,
+                                     devices=[dev])
+        map_query_file_sharded(engine, params, fq, out_1x1,
+                               engine_stats=stats_1x1)
+        torch.cuda.synchronize()
+    del engine
+    for suffix in ("", ".meta"):
+        if not same_bytes(out_single + suffix, out_1x1 + suffix):
+            raise AssertionError(f"the mesh at shard=1,data=1{suffix} differs "
+                                 "from mapDirectly")
+    for fn in counters:
+        fn.launches = 0
+    l1._MINHITS.clear()  # the table as a fresh process computes it
+    gc.collect()
+    torch.cuda.synchronize()
+    mem_before = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    with Phase("mesh_engine", times):
+        engine = ShardedMapperEngine(shard, params, n_shard, n_data,
+                                     rows_per_device=MESH_ROWS,
+                                     devices=[dev] * (n_shard * n_data))
+        torch.cuda.synchronize()
+    stats: dict = {}
+    with Phase("mesh", times):
+        map_query_file_sharded(engine, params, fq, out_mesh,
+                               engine_stats=stats)
+        torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in counters}
+    peak = torch.cuda.max_memory_allocated(dev)
+
+    with Phase("mesh_checks", times):
+        meta = read_meta(out_mesh)
+        mappable = meta["TotalReads"] - meta["ReadsTooShort"]
+        batch = l2_sweep.l2_event_sweep_batch.__name__
+        info = dict(
+            card=card, mesh=dict(shard=n_shard, data=n_data),
+            rows_per_device=MESH_ROWS, devices=[str(dev)] * (n_shard * n_data),
+            part_minimizers=[p.n_minimizers for p in engine.parts],
+            part_contigs=[len(p.contig_names) for p in engine.parts],
+            part_freq_thresholds=[p.freq_threshold for p in engine.parts],
+            whole_freq_threshold=shard.freq_threshold,
+            device_table_bytes=sum(e.tables.nbytes() for row in engine.engines
+                                   for e in row),
+            engine_s=times["mesh_engine"], mesh_s=times["mesh"],
+            mapping_s=stats["map_s"], minhits_s=stats["minhits_s"],
+            mapping_reads_per_s=mappable / stats["map_s"],
+            oracle_fallbacks=stats["oracle_fallbacks"],
+            reads_mappable_over_blocks=stats["reads_mappable"],
+            l2_candidates=stats["l2_candidates"], l2_slabs=stats["l2_slabs"],
+            launches=launches, peak_device_bytes=peak,
+            mapping_s_1x1=stats_1x1["map_s"],
+            mapping_reads_per_s_1x1=mappable / stats_1x1["map_s"],
+            l2_slabs_1x1=stats_1x1["l2_slabs"],
+            device_bytes_before=mem_before, meta=meta)
+        if launches[batch] <= 0:
+            raise AssertionError("the sweep kernel never ran on the mesh")
+        if (stats["oracle_fallbacks"]
+                > 0.01 * info["reads_mappable_over_blocks"]):
+            raise AssertionError(f"{stats['oracle_fallbacks']} oracle "
+                                 "fallbacks on the mesh")
+        if meta["TotalReads"] != (meta["ReadsTooShort"] + meta["ReadsMapped"]
+                                  + meta["ReadsNotMapped"]):
+            raise AssertionError("mesh .meta does not add up")
+        if meta["TotalReads"] != len(reads):
+            raise AssertionError("mesh .meta TotalReads differs")
+        if meta["ReadsMapped"] < 0.9 * len(reads):
+            raise AssertionError(f"the mesh mapped only {meta['ReadsMapped']} "
+                                 "reads")
+        # for the record: where the blocks' own thresholds change lines
+        with open(out_single) as a, open(out_mesh) as b:
+            single, mesh = set(a), set(b)
+        info.update(lines=len(mesh), lines_only_single=len(single - mesh),
+                    lines_only_mesh=len(mesh - single),
+                    reads_differing=len({l.split(" ", 1)[0]
+                                         for l in single ^ mesh}))
+        # the sample: the mesh engine against the serial oracle on the same
+        # four partitions, through the same writer and unify; each
+        # partition's oracle run split over MESH_ORACLE_WORKERS processes
+        # by reads (a read's lines do not depend on the others)
+        sdir = os.path.join(args.workdir, "mesh_sample")
+        os.makedirs(sdir, exist_ok=True)
+        sample_fq = os.path.join(sdir, "sample.fastq")
+        write_fastq(sample_fq, reads[:SAMPLE])
+        outs = {e: os.path.join(sdir, e) for e in ("torch", "oracle")}
+        map_query_file_sharded(engine, params, sample_fq, outs["torch"])
+        step = -(-SAMPLE // MESH_ORACLE_WORKERS)
+        pieces = []
+        for w in range(MESH_ORACLE_WORKERS):
+            pieces.append(os.path.join(sdir, f"sample{w}.fastq"))
+            write_fastq(pieces[-1], reads[w * step:min((w + 1) * step, SAMPLE)],
+                        first=w * step)
+        jobs, part_files = [], []
+        with ProcessPoolExecutor(
+                n_shard * MESH_ORACLE_WORKERS,
+                mp_context=multiprocessing.get_context("spawn")) as pool:
+            for i, part in enumerate(engine.parts):
+                path = os.path.join(sdir, f"part{i}.npz")
+                part.save(path)
+                part_files.append(f"{outs['oracle']}.{i}")
+                for w, piece in enumerate(pieces):
+                    jobs.append(pool.submit(_oracle_part_worker, path, params,
+                                            piece, f"{part_files[-1]}.{w}"))
+            for job in jobs:
+                job.result()
+        for path in part_files:
+            with open(path, "w") as out:
+                for w in range(MESH_ORACLE_WORKERS):
+                    with open(f"{path}.{w}") as f:
+                        out.write(f.read())
+                    os.remove(f"{path}.{w}")
+        unify_query_file(outs["oracle"], sample_fq, params, part_files)
+        for suffix in ("", ".meta"):
+            if not same_bytes(outs["torch"] + suffix, outs["oracle"] + suffix):
+                raise AssertionError(f"mesh sample{suffix}: the torch engine "
+                                     "and the oracle differ")
+        with open(outs["oracle"]) as f:
+            info["sample_lines"] = sum(1 for _ in f)
+        log(f"{SAMPLE}-read sample over the mesh's {n_shard} partitions: "
+            f"{info['sample_lines']} mapping lines and .meta byte-identical "
+            f"with the torch engine and the serial oracle "
+            f"({n_shard} x {MESH_ORACLE_WORKERS} workers)")
+        del engine
+        gc.collect()
+        torch.cuda.synchronize()
+        info["device_bytes_after"] = mem_after = torch.cuda.memory_allocated(dev)
+        log("mesh " + json.dumps(info))
+        if mem_after != mem_before:
+            raise AssertionError(f"device memory {mem_after} B after the "
+                                 f"mesh, {mem_before} B before")
+    return info
+
+
+def mesh_cli_and_em(long_run: dict, times: dict, db: str, out_mesh: str,
+                    counters, dev) -> dict:
+    """``mapDirectly --mesh shard=1,data=1`` through the CLI against phase
+    9's run without it, then ``classify --emBackend sharded`` on the mesh
+    output (through the CLI, and over ``EM_SHARDED_RANKS`` ranks of ``dev``)
+    against ``--emBackend numpy``."""
+    info: dict = {}
+    with Phase("mesh_cli", times):
+        out1 = os.path.join(long_run["dir"], "out")
+        out_m = os.path.join(long_run["dir"], "out_mesh")
+        for fn in counters:
+            fn.launches = 0
+        if cli_main(["mapDirectly", "--reference", long_run["ref"], "--query",
+                     long_run["fq"], "--output", out_m, "--all",
+                     *LONG_READ_ARGS, "--mesh", "shard=1,data=1",
+                     "--device", "cuda"]) != 0:
+            raise AssertionError("mapDirectly --mesh failed")
+        torch.cuda.synchronize()
+        info["cli_launches"] = {fn.__name__: fn.launches for fn in counters}
+        for suffix in ("", ".meta", ".meta.unmappedReadsLengths"):
+            if not same_bytes(out1 + suffix, out_m + suffix):
+                raise AssertionError(f"mapDirectly --mesh shard=1,data=1 "
+                                     f"{suffix}: differs from the run without")
+        log("mapDirectly --mesh shard=1,data=1 on the long read: the bytes of "
+            f"the run without --mesh; launches {info['cli_launches']}")
+    with Phase("mesh_em", times):
+        runs = {}
+        for name in ("numpy", "sharded_cli", "sharded_ranks"):
+            d = os.path.join(os.path.dirname(out_mesh), name)
+            os.makedirs(d, exist_ok=True)
+            for suffix in ("", ".meta", ".meta.unmappedReadsLengths"):
+                shutil.copy(out_mesh + suffix, d)
+            runs[name] = os.path.join(d, "out")
+        for name, backend in (("numpy", "numpy"), ("sharded_cli", "sharded")):
+            t0 = time.perf_counter()
+            if cli_main(["classify", "--DB", db, "--mappings", runs[name],
+                         "--emBackend", backend]) != 0:
+                raise AssertionError(f"classify --emBackend {backend} failed")
+            info[f"classify_{name}_s"] = time.perf_counter() - t0
+        p_em = Parameters()
+        p_em.db, p_em.minimum_reads_for_u = db, 10000
+        t0 = time.perf_counter()
+        em.do_em(p_em, runs["sharded_ranks"], em_backend="sharded",
+                 device=[dev] * EM_SHARDED_RANKS)
+        info["classify_sharded_ranks_s"] = time.perf_counter() - t0
+        for name in ("sharded_cli", "sharded_ranks"):
+            for suffix in EM_FILES:
+                if not same_bytes(runs["numpy"] + suffix, runs[name] + suffix):
+                    raise AssertionError(f"{suffix}: the sharded EM ({name}) "
+                                         "and the host EM differ")
+        log(f"classify --emBackend sharded (CLI: {torch.cuda.device_count()} "
+            f"rank(s); and {EM_SHARDED_RANKS} ranks of {dev}): 7 .EM* files "
+            "identical to --emBackend numpy; " + json.dumps(info))
+    return info
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--genera", type=int, default=12)
@@ -662,6 +907,7 @@ def main(argv=None) -> int:
             raise AssertionError(f"expected one shard, got {n_shards}")
         shard = shards[0]
         engine = TorchMapperEngine(shard, params, device=dev)
+        table_bytes = engine.tables.nbytes()
         native = winnow_native(np.full(64, ord("A"), np.uint8), 16, 8)
         log(f"k={params.kmer_size} w={params.window_size}; "
             f"{shard.n_minimizers} minimizers; device tables "
@@ -847,7 +1093,8 @@ def main(argv=None) -> int:
             ll_rel_diff=abs(lla - llh) / abs(llh),
             f_max_abs_diff=float(np.abs(fa - fh).max()),
             # the round at the JAX bench's table sizes (1M and 12M lines)
-            scale=em_bench.run(dev, reps=3, log=lambda m: log(f"em_bench {m}")))
+            scale=em_bench.run(dev, reps=3, log=lambda m: log(f"em_bench {m}"),
+                               sharded_ranks=EM_SHARDED_RANKS))
         log("EM: 7 .EM* files identical on the card and the host; two "
             "rounds on the card identical in bits; " + json.dumps(em_stats))
 
@@ -946,12 +1193,27 @@ def main(argv=None) -> int:
     long_info, wide_row = long_read(long_run, times, card, counters, dev,
                                     clock_mhz)
     lr_batch = long_info["launches"][l2_sweep.l2_event_sweep_batch.__name__]
-    batch_row.update(launches=launches + mai["sweep_launches"] + lr_batch,
+
+    # ---- 10. the mesh: eight ranks of the card over four contig blocks -----
+    mesh = mesh_phase(args, times, db, fq, reads, shard, params, out, card,
+                      counters, dev)
+    mesh.update(mesh_cli_and_em(long_run, times, db,
+                                os.path.join(args.workdir, "mesh", "out"),
+                                counters, dev))
+    mesh_batch = mesh["launches"][l2_sweep.l2_event_sweep_batch.__name__]
+    cli_batch = mesh["cli_launches"][l2_sweep.l2_event_sweep_batch.__name__]
+    cli_wide = mesh["cli_launches"][l2_sweep.l2_event_sweep_wide.__name__]
+    batch_row.update(launches=(launches + mai["sweep_launches"] + lr_batch
+                               + mesh_batch + cli_batch),
                      launches_mapDirectly=launches,
                      launches_mapAgainstIndex=mai["sweep_launches"],
-                     launches_long_read=lr_batch)
+                     launches_long_read=lr_batch, launches_mesh=mesh_batch,
+                     launches_mesh_cli=cli_batch)
+    wide_row.update(launches=wide_row["launches"] + cli_wide,
+                    launches_long_read=wide_row["launches"],
+                    launches_mesh_cli=cli_wide)
 
-    # ---- 10. summary ------------------------------------------------------
+    # ---- 11. summary ------------------------------------------------------
     map_s = engine_stats["map_s"]
     summary = {
         "reads": len(reads), "reads_mappable": mappable,
@@ -961,12 +1223,13 @@ def main(argv=None) -> int:
         "minhits_s": engine_stats["minhits_s"],
         "classify_s": times["classify"], "em": em_stats,
         "index_minimizers": shard.n_minimizers,
-        "peak_device_bytes": peak, "oracle_fallbacks": fallbacks,
+        "peak_device_bytes": peak, "device_table_bytes": table_bytes,
+        "oracle_fallbacks": fallbacks,
         "l2_candidates": engine_stats["l2_candidates"],
         "sweep_launches": launches, "phase_s": times,
         "mapping_phase_s": breakdown, "sweep_bench_ms": scenario_ms,
         "sm_clock_max_mhz": clock_mhz, "map_against_index": mai,
-        "long_read": long_info, "card": card,
+        "long_read": long_info, "mesh": mesh, "card": card,
     }
     log("summary " + json.dumps(summary))
     shutil.rmtree(args.workdir, ignore_errors=True)

@@ -1,18 +1,27 @@
 """Command-line interface of the port.
 
 Counterpart: ``metamaps_tpu/cli.py``. The reference's five core
-subcommands run through the port: ``index``, ``mapDirectly`` (single shard
-or the memory-bounded shard loop), ``mapAgainstIndex`` (the stored shards
-of an ``index``), ``classify`` (EM rounds in float64 on ``--device``) and
+subcommands run through the port: ``index``, ``mapDirectly`` (single shard,
+the memory-bounded shard loop, or ``--mesh shard=S,data=D``: the index
+partitioned by contigs over S x D devices, ``--meshBuckets``,
+``--meshRows`` and ``--meshProgress`` as in the JAX package; with
+``--device cuda`` it needs S * D cards, with ``--device cpu`` every rank is
+on the CPU; the ranks run in turn in one thread), ``mapAgainstIndex`` (the stored shards
+of an ``index``), ``classify`` (EM rounds in float64 on ``--device``;
+``--emBackend sharded`` over every visible card, or one CPU rank, and
+``auto`` as the JAX package picks) and
 ``classifyU`` (host code, as in the JAX package). Every other subcommand of
 the JAX package's CLI prints "not ported yet" and returns 2.
 
     python -m metamaps_tpu_torch mapDirectly --reference DB/DB.fa \\
         --query reads.fastq --output out --all
+    python -m metamaps_tpu_torch mapDirectly --reference DB/DB.fa \\
+        --query reads.fastq --output out --all --mesh shard=4,data=2
     python -m metamaps_tpu_torch index --reference DB/DB.fa --index idx/DB
     python -m metamaps_tpu_torch mapAgainstIndex --index idx/DB \\
         --query reads.fastq --output out --all
-    python -m metamaps_tpu_torch classify --DB DB --mappings out
+    python -m metamaps_tpu_torch classify --DB DB --mappings out \\
+        [--emBackend torch|numpy|sharded|auto]
     python -m metamaps_tpu_torch classifyU --DB DB --mappings out
 """
 from __future__ import annotations
@@ -109,6 +118,29 @@ def _parser() -> argparse.ArgumentParser:
     _add_sketch_args(p_map)
     _add_query_args(p_map)
     _add_device_arg(p_map, "torch engine")
+    p_map.add_argument(
+        "--mesh", default=None, metavar="shard=S,data=D",
+        help="map over a device mesh: index contig-partitioned over S "
+        "blocks, each block's reads split over D ranks (needs S*D devices: "
+        "cuda:0..S*D-1, or S*D ranks on the host with --device cpu); "
+        "outputs are unified per read exactly as in the memory-bounded "
+        "shard loop. The ranks run one after another in one thread, so "
+        "the mesh is no faster than one device on any number of cards",
+    )
+    p_map.add_argument(
+        "--meshBuckets", default=None, metavar="L1,L2,...",
+        help="override the mesh engines' read-length buckets (each "
+        "bucket's capacities derive from its length; default the torch "
+        "engine's own)",
+    )
+    p_map.add_argument(
+        "--meshRows", type=int, default=None,
+        help="reads per device per mesh dispatch (default 32)",
+    )
+    p_map.add_argument(
+        "--meshProgress", action="store_true",
+        help="print time-stamped mesh phase progress to stderr",
+    )
 
     p_mai = sub.add_parser("mapAgainstIndex", help="map reads against a stored index")
     p_mai.add_argument("--index", "-i", required=True, help="index prefix")
@@ -127,7 +159,11 @@ def _parser() -> argparse.ArgumentParser:
         if name == "classify":
             p_c.add_argument("--emBackend", choices=EM_BACKENDS, default="torch",
                              help="EM round backend: torch = float64 rounds on "
-                             "--device (default), numpy = host float64 (parity path)")
+                             "--device (default), numpy = host float64 (parity "
+                             "path), sharded = float64 rounds data-parallel over "
+                             "every visible card (one rank with --device cpu) "
+                             "with summed statistics, auto = torch for very "
+                             "large mapping tables on a card, else numpy")
             _add_device_arg(p_c, "EM rounds")
     return parser
 
@@ -145,7 +181,7 @@ def main(argv=None, engine_stats: dict = None) -> int:
 
     args = _parser().parse_args(argv)
     if args.command == "classify":
-        if args.emBackend == "torch":
+        if args.emBackend != "numpy":
             require_cuda(args.device)
         params = Parameters()
         params.db = args.DB
@@ -193,6 +229,31 @@ def main(argv=None, engine_stats: dict = None) -> int:
     if args.mapping_engine == "torch":
         require_cuda(args.device)
     _query_params(params, args)
+    if args.mesh:
+        from .parallel.sharded_engine import (
+            map_directly_sharded,
+            parse_mesh_spec,
+        )
+
+        if args.mapping_engine != "torch":
+            print("metamaps_tpu_torch: --mesh maps with the torch engine",
+                  file=sys.stderr)
+            return 2
+        n_shard, n_data = parse_mesh_spec(args.mesh)
+        buckets = (
+            tuple(int(x) for x in args.meshBuckets.split(","))
+            if args.meshBuckets else None
+        )
+        map_directly_sharded(
+            params, n_shard, n_data,
+            read_len_buckets=buckets,
+            rows_per_device=args.meshRows,
+            progress=bool(args.meshProgress),
+            devices=(None if args.device == "cuda"
+                     else ["cpu"] * (n_shard * n_data)),
+            engine_stats=engine_stats, profile=args.profile,
+        )
+        return 0
     map_directly(params, params.maximum_memory, device=args.device,
                  engine_stats=engine_stats, profile=args.profile)
     return 0

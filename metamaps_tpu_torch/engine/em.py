@@ -3,8 +3,11 @@
 Counterpart: ``metamaps_tpu/engine/em.py``. The host float64 path and every
 output file are copied unchanged; the JAX device round
 (``make_em_iterate_jax``) becomes a float64 torch round on an explicit device
-(:func:`make_em_iterate_torch`). The ``sharded`` and ``auto`` backends are
-not ported yet.
+(:func:`make_em_iterate_torch`); the ``sharded`` backend runs float64 rounds
+data-parallel over a list of devices with the per-read and per-taxon sums
+summed over the ranks (``parallel/mesh.py``), and ``auto`` picks the host
+below ``EM_AUTO_DEVICE_MIN_LINES`` lines or on the CPU, the device round
+above, as the JAX package's rule does.
 
 Parity re-implementation of the reference classifier (src/meta/fEM.h) with a
 vectorized E/M-step over flat (read x location) arrays:
@@ -30,7 +33,9 @@ import numpy as np
 import torch
 from scipy import stats as spstats
 
+from ..device import require_cuda
 from ..io.mappings import fmt_g, iter_reads_grouped, read_meta, read_unmapped_lengths
+from ..parallel.mesh import make_em_iterate_sharded
 from ..taxonomy import RELEVANT_LEVEL_NAMES, Taxonomy, extract_taxon_id
 
 COVERAGE_WINDOW = 1000
@@ -284,43 +289,41 @@ def make_em_iterate_torch(table: MappingTable, device):
 
     Counterpart of ``make_em_iterate_jax`` (``metamaps_tpu/engine/em.py``),
     without its blocked chunk scan, which exists only for XLA's compile
-    time. Both sums are CSR segment sums (``torch.segment_reduce``): the
-    per-read sums over the lines, which are grouped by read
-    (``read_of_line`` is nondecreasing), and the per-taxon sums over the
-    lines in a stable taxon order fixed once here. Unlike ``index_add_``,
-    whose CUDA atomics change the order of a float64 sum from run to run,
-    these give the same bits in every round and every run on one card."""
-    dev = torch.device(device)
-    n_reads = len(table.read_ids)
-    f64 = dict(dtype=torch.float64, device=dev)
-    tax = torch.as_tensor(table.taxon_of_line.astype(np.int64), device=dev)
-    inv_loc = torch.as_tensor(table.inv_locations, **f64)
-    mapq = torch.as_tensor(table.mapq, **f64)
-    read = torch.as_tensor(table.read_of_line, device=dev)
-    read_len = torch.as_tensor(
-        np.bincount(table.read_of_line, minlength=n_reads), device=dev)
-    by_tax = torch.as_tensor(
-        np.argsort(table.taxon_of_line, kind="stable"), device=dev)
-    tax_len = torch.as_tensor(
-        np.bincount(table.taxon_of_line, minlength=len(table.taxon_list)),
-        device=dev)
-
-    def step(f: np.ndarray):
-        l = torch.as_tensor(f, **f64)[tax] * inv_loc * mapq
-        per_read = torch.segment_reduce(l, "sum", lengths=read_len)
-        ll = torch.log(per_read).sum()
-        p = l / per_read[read]
-        f_next = torch.segment_reduce(p[by_tax], "sum", lengths=tax_len)
-        f_next = f_next / f_next.sum()
-        # one copy to the host: f_next, then ll and the smallest per-read sum
-        host = torch.cat([f_next, ll[None], per_read.min()[None]]).cpu().numpy()
-        assert host[-1] > 0, "read with zero total location probability"
-        return host[:-2], float(host[-2])
-
-    return step
+    time: the sharded round (``parallel/mesh.py``) over the one rank
+    ``device``, whose CSR segment sums give the same bits in every round
+    and every run on one card."""
+    return make_em_iterate_sharded(table, [device])
 
 
-EM_BACKENDS = ("torch", "numpy")
+EM_BACKENDS = ("torch", "numpy", "sharded", "auto")
+
+#: 'auto' switches to the device backend above this many mapping lines —
+#: below it the host float64 bincounts win (and keep exact parity anyway).
+EM_AUTO_DEVICE_MIN_LINES = 5_000_000
+
+
+def _resolve_em_backend(table: MappingTable, backend: str, device="cuda") -> str:
+    """``auto`` -> 'numpy' below ``EM_AUTO_DEVICE_MIN_LINES`` lines or when
+    ``device`` is the CPU, else 'torch' (``_resolve_em_backend`` of the JAX
+    package, with 'torch' for its 'jax'); any other backend is itself."""
+    if backend != "auto":
+        return backend
+    if len(table.lines) < EM_AUTO_DEVICE_MIN_LINES:
+        return "numpy"
+    if torch.device(device).type == "cpu":
+        return "numpy"
+    return "torch"
+
+
+def em_devices(device) -> list:
+    """The ranks of the sharded backend: a list of devices as given, every
+    visible CUDA device for a CUDA device name (raises without CUDA), one
+    rank for the CPU."""
+    if isinstance(device, (list, tuple)):
+        return list(device)
+    if require_cuda(device).type == "cpu":
+        return [torch.device("cpu")]
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
 
 
 def run_em(table: MappingTable, verbose: bool = True, backend: str = "numpy",
@@ -329,13 +332,19 @@ def run_em(table: MappingTable, verbose: bool = True, backend: str = "numpy",
 
     backend 'numpy' runs the float64 rounds on the host (parity path);
     'torch' runs them in float64 on ``device`` (:func:`make_em_iterate_torch`)
-    with the same host-side convergence control."""
+    with the same host-side convergence control; 'sharded' runs them
+    data-parallel over the ranks :func:`em_devices` makes of ``device`` (a
+    device name, or a list of devices in which one may repeat); 'auto' picks
+    as :func:`_resolve_em_backend` says."""
     if backend not in EM_BACKENDS:
         raise ValueError(f"unknown EM backend {backend!r}; one of {EM_BACKENDS}")
+    backend = _resolve_em_backend(table, backend, device)
     n_tax = len(table.taxon_list)
     f = np.full(n_tax, 1.0 / n_tax, np.float64)
     if backend == "torch":
         step = make_em_iterate_torch(table, device)
+    elif backend == "sharded":
+        step = make_em_iterate_sharded(table, em_devices(device))
     else:
         step = lambda f_in: em_iterate(table, f_in)
     ll_last = None
@@ -483,7 +492,9 @@ def _overlap(a_left, a_right, b_left, b_right):
 
 def do_em(params, mapped_file: str, em_backend: str = "torch", device="cuda"):
     """The classify entry point (doEM, fEM.h:466-1133). The EM rounds run on
-    ``device`` (backend 'torch') or on the host (backend 'numpy')."""
+    ``device`` (backend 'torch'), over the ranks made of it (backend
+    'sharded', :func:`run_em`), on the host (backend 'numpy'), or on the one
+    ``auto`` picks."""
     db_dir = params.db
     minimum_reads_per_best = params.minimum_reads_for_u
 

@@ -35,6 +35,8 @@ from .index import SketchShard, build_shards, load_index_manifest
 
 ENGINES = ("torch", "oracle")
 BATCH_READS = 8192  # reads handed to the torch engine at a time
+#: the torch engine's counters that ``engine_stats`` sums
+STAT_KEYS = ("oracle_fallbacks", "l2_candidates", "l2_slabs")
 
 
 def add_mapping_qualities(params: Parameters, lines: List[str]) -> List[str]:
@@ -179,6 +181,16 @@ def unify_files(
     write_parameters_file(unified_fn, params)
 
 
+def unify_query_file(prefix: str, query: str, params: Parameters,
+                     mapping_files: List[str]):
+    """:func:`unify_files` of one query file's per-shard outputs into
+    ``prefix``, with ``params`` naming that file and that output."""
+    local = Parameters(**{**params.__dict__})
+    local.query_sequences = [query]
+    local.out_file_name = prefix
+    unify_files(prefix, local, mapping_files, [query])
+
+
 def map_query_file_against_shard(
     shard: SketchShard,
     params: Parameters,
@@ -188,21 +200,26 @@ def map_query_file_against_shard(
     device="cuda",
     engine_stats: dict = None,
     profile: bool = False,
+    mapper=None,
 ):
     """skch::Map equivalent: map every (long-enough) read of one file
     against one shard, writing 12-field lines in read order
     (computeMap.hpp:104-172 + reportReadMappings). ``engine_stats``, when
     given, accumulates the torch engine's counters; ``profile`` runs the
     torch engine with a synchronise after each phase and prints its
-    ``stats["phase_s"]`` on stderr."""
+    ``stats["phase_s"]`` on stderr. ``mapper``, when given, is a built
+    engine over ``shard`` (``map_reads`` and ``stats`` as
+    :class:`TorchMapperEngine` has them) used in place of a new one; its
+    counters count from where they stand at the call."""
     if engine not in ENGINES:
         raise ValueError(f"unknown mapping engine {engine!r}; one of {ENGINES}")
-    torch_engine = None
-    if engine == "torch":
+    torch_engine = mapper
+    if engine == "torch" and torch_engine is None:
         from .mapper_torch import TorchMapperEngine
 
         torch_engine = TorchMapperEngine(shard, params, device=device,
                                          profile=profile)
+    before = _counters(torch_engine)
 
     t_start = time.perf_counter()
     n_mapped = 0
@@ -257,17 +274,20 @@ def map_query_file_against_shard(
             flush(out, pending)
     fallbacks = ""
     if torch_engine is not None:
-        es = torch_engine.stats
+        after = _counters(torch_engine)
+        es = {k: after[k] - before[k] for k in STAT_KEYS}
+        phase_s = {k: v - before["phase_s"].get(k, 0.0)
+                   for k, v in after["phase_s"].items()}
         fallbacks = f" oracle_fallbacks={es['oracle_fallbacks']}"
         if engine_stats is not None:
-            for key in ("oracle_fallbacks", "l2_candidates", "l2_slabs"):
+            for key in STAT_KEYS:
                 engine_stats[key] = engine_stats.get(key, 0) + es[key]
             engine_stats["minhits_s"] = (engine_stats.get("minhits_s", 0.0)
-                                         + es["phase_s"].get("minhits", 0.0))
+                                         + phase_s.get("minhits", 0.0))
         if profile:
             print(f"INFO, metamaps_tpu_torch::map, phase seconds for "
                   f"{out_path}: " + " ".join(
-                      f"{k}={v:.3f}" for k, v in es["phase_s"].items()),
+                      f"{k}={v:.3f}" for k, v in phase_s.items()),
                   file=sys.stderr)
     if engine_stats is not None:
         for key, val in (("reads_total", n_total), ("reads_mappable", n_picked),
@@ -283,6 +303,15 @@ def map_query_file_against_shard(
         file=sys.stderr,
     )
     return n_mapped, n_picked, n_total
+
+
+def _counters(torch_engine) -> dict:
+    """A copy of the engine's counters and phase seconds (empty without an
+    engine)."""
+    if torch_engine is None:
+        return {}
+    es = torch_engine.stats
+    return dict({k: es[k] for k in STAT_KEYS}, phase_s=dict(es["phase_s"]))
 
 
 def map_directly(params: Parameters, maximum_memory: int = 0, device="cuda",
@@ -307,10 +336,7 @@ def map_directly(params: Parameters, maximum_memory: int = 0, device="cuda",
     build_shards(params, maximum_memory, map_shard)
 
     for fi, (prefix, query) in enumerate(zip(prefixes, queries)):
-        local = Parameters(**{**params.__dict__})
-        local.query_sequences = [query]
-        local.out_file_name = prefix
-        unify_files(prefix, local, per_file_outputs[fi], [query])
+        unify_query_file(prefix, query, params, per_file_outputs[fi])
 
 
 def map_against_index(params: Parameters, index_prefix: str, device="cuda",
@@ -361,7 +387,4 @@ def map_against_index(params: Parameters, index_prefix: str, device="cuda",
             per_file_outputs[fi].append(out_fn)
 
     for fi, (prefix, query) in enumerate(zip(prefixes, queries)):
-        local = Parameters(**{**use.__dict__})
-        local.query_sequences = [query]
-        local.out_file_name = prefix
-        unify_files(prefix, local, per_file_outputs[fi], [query])
+        unify_query_file(prefix, query, use, per_file_outputs[fi])

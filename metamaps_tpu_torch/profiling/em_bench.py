@@ -6,10 +6,14 @@ table layout, four lines per read, made from a seed. For each size it times
 :func:`metamaps_tpu_torch.engine.em.make_em_iterate_torch`'s round on
 ``device`` (each round ends with its copy of f to the host, as ``run_em``
 uses it) and the host float64 round ``em_iterate``, and checks that the two
-agree (ll within 1e-12 relative, f within 1e-12 absolute).
+agree (ll within 1e-12 relative, f within 1e-12 absolute); with
+``--sharded-ranks R`` also the round of the sharded backend
+(``parallel/mesh.py:make_em_iterate_sharded``) over R ranks of ``device``,
+held to the host round with the same tolerances.
 
     python -m metamaps_tpu_torch.profiling.em_bench              # cuda:0
     python -m metamaps_tpu_torch.profiling.em_bench --lines 1000000
+    python -m metamaps_tpu_torch.profiling.em_bench --sharded-ranks 4
 """
 from __future__ import annotations
 
@@ -55,29 +59,47 @@ def round_ms(step, f, reps: int) -> float:
     return (time.perf_counter() - t0) * 1e3 / reps
 
 
-def run(device, sizes=SIZES, reps: int = 5, log=print) -> list:
-    """Time the round on ``device`` and on the host at each table size;
-    returns one dict per size."""
+def _agreement(step, f, want, n_lines: int, what: str):
+    """(ll relative, f absolute) difference of ``step``'s round from the
+    host round ``want``; raises above 1e-12."""
+    fd, lld = step(f)
+    fh, llh = want
+    ll_rel = abs(lld - llh) / abs(llh)
+    f_abs = float(np.abs(fd - fh).max())
+    if ll_rel > 1e-12 or f_abs > 1e-12:
+        raise AssertionError(f"{what} EM round differs from the host at "
+                             f"{n_lines} lines: ll {ll_rel}, f {f_abs}")
+    return ll_rel, f_abs
+
+
+def run(device, sizes=SIZES, reps: int = 5, log=print,
+        sharded_ranks: int = 0) -> list:
+    """Time the round on ``device`` and on the host at each table size, and
+    with ``sharded_ranks`` > 0 the sharded round over that many ranks of
+    ``device``; returns one dict per size."""
+    from ..parallel.mesh import make_em_iterate_sharded
+
     device = torch.device(device)
     rng = np.random.default_rng(SEED)
     rows = []
     for n_lines in sizes:
         table = synthetic_table(rng, n_lines)
         f = np.full(len(table.taxon_list), 1.0 / len(table.taxon_list))
+        want = em_iterate(table, f)
         step = make_em_iterate_torch(table, device)
-        fd, lld = step(f)
-        fh, llh = em_iterate(table, f)
-        ll_rel = abs(lld - llh) / abs(llh)
-        f_abs = float(np.abs(fd - fh).max())
-        if ll_rel > 1e-12 or f_abs > 1e-12:
-            raise AssertionError(f"EM round differs from the host at {n_lines} "
-                                 f"lines: ll {ll_rel}, f {f_abs}")
+        ll_rel, f_abs = _agreement(step, f, want, n_lines, "torch")
         row = dict(lines=len(table.read_of_line), reads=len(table.read_ids),
                    taxa=len(table.taxon_list), device=str(device),
                    round_ms=round_ms(step, f, reps),
                    host_round_ms=round_ms(lambda x: em_iterate(table, x), f,
                                           reps),
                    ll_rel_diff=ll_rel, f_max_abs_diff=f_abs)
+        if sharded_ranks:
+            sharded = make_em_iterate_sharded(table, [device] * sharded_ranks)
+            ll_s, f_s = _agreement(sharded, f, want, n_lines, "sharded")
+            row.update(sharded_ranks=sharded_ranks,
+                       sharded_round_ms=round_ms(sharded, f, reps),
+                       sharded_ll_rel_diff=ll_s, sharded_f_max_abs_diff=f_s)
         log(json.dumps(row))
         rows.append(row)
     return rows
@@ -88,12 +110,13 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda:0")
     ap.add_argument("--lines", type=int, nargs="+", default=list(SIZES))
     ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--sharded-ranks", type=int, default=0)
     args = ap.parse_args(argv)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         print("em_bench: no CUDA device", file=sys.stderr)
         return 1
-    run(device, args.lines, args.reps)
+    run(device, args.lines, args.reps, sharded_ranks=args.sharded_ranks)
     return 0
 
 

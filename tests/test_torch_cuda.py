@@ -7,6 +7,9 @@ This file imports no JAX, so that it also runs on a machine without it:
 (``--noconftest`` skips ``tests/conftest.py``, which configures JAX.) Each
 sweep kernel must equal its plain version bit for bit: both are exact int32.
 """
+import os
+import shutil
+
 import numpy as np
 import pytest
 import torch
@@ -472,3 +475,92 @@ def test_empty_input_launches_nothing(cuda, name):
         assert out.shape == (0, 4)
     if name == "parts":
         assert got[2].shape == (0, 2, 1152)
+
+
+MESH_MAP_SUFFIXES = ("", ".meta", ".meta.unmappedReadsLengths")
+
+
+@pytest.fixture(scope="module")
+def mesh_mini(tmp_path_factory):
+    """``tests/test_sharded_product.py``'s database (6 genomes x 24 kb, 24
+    reads) and the port's one-device ``mapDirectly`` on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from metamaps_tpu_torch.cli import main as port_cli_main
+
+    from util_db import make_mini_db, write_reads_fastq
+
+    root = tmp_path_factory.mktemp("mesh_card")
+    db = str(root / "DB")
+    rng = np.random.default_rng(20240817)
+    genomes, _, _ = make_mini_db(db, rng, n_genomes=6, genome_len=24000)
+    fq = str(root / "reads.fastq")
+    write_reads_fastq(fq, sample_reads(rng, genomes, 24, min_len=2200,
+                                       max_len=4000, sub=0.07))
+    argv = ["mapDirectly", "--reference", f"{db}/DB.fa", "--query", fq,
+            "--all", "--minReadLen", "2000"]
+    out1 = str(root / "single")
+    assert port_cli_main(argv + ["--output", out1]) == 0
+    return db, argv, out1
+
+
+def test_mesh_on_four_ranks_of_one_card(mesh_mini, tmp_path):
+    """shard=2,data=2 on four ranks of cuda:0 writes the one-device bytes,
+    through the batch sweep kernel."""
+    from metamaps_tpu_torch import cli
+    from metamaps_tpu_torch.parallel.sharded_engine import map_directly_sharded
+
+    db, argv, out1 = mesh_mini
+    out = str(tmp_path / "mesh")
+    args = cli._parser().parse_args(argv + ["--output", out])
+    params = cli._sketch_params(args)
+    cli._query_params(params, args)
+    before = l2_event_sweep_batch.launches
+    stats = {}
+    map_directly_sharded(params, 2, 2, devices=["cuda:0"] * 4,
+                         engine_stats=stats)
+    torch.cuda.synchronize()
+    assert l2_event_sweep_batch.launches > before
+    assert stats["oracle_fallbacks"] == 0 and stats["reads_mappable"] == 48
+    for suffix in MESH_MAP_SUFFIXES:
+        with open(out1 + suffix) as a, open(out + suffix) as b:
+            assert a.read() == b.read(), suffix
+
+
+def test_mesh_with_more_ranks_than_cards_raises(mesh_mini, tmp_path):
+    from metamaps_tpu_torch.cli import main as port_cli_main
+
+    _, argv, _ = mesh_mini
+    n = torch.cuda.device_count() + 1
+    out = str(tmp_path / "mesh")
+    with pytest.raises(RuntimeError, match=f"needs {n} CUDA devices"):
+        port_cli_main(argv + ["--output", out, "--mesh", f"shard={n},data=1"])
+    assert not os.path.exists(out)
+
+
+def test_sharded_em_on_one_card_writes_numpy_bytes(mesh_mini, tmp_path):
+    """The sharded EM on four ranks of cuda:0 writes the host EM's bytes in
+    all seven .EM* files."""
+    from metamaps_tpu_torch.engine.em import do_em
+
+    db, _, out1 = mesh_mini
+    outs = {}
+    for backend in ("numpy", "sharded"):
+        d = tmp_path / backend
+        d.mkdir()
+        for suffix in MESH_MAP_SUFFIXES:
+            shutil.copy(out1 + suffix, d)
+        outs[backend] = str(d / "single")
+        params = Parameters()
+        params.db = db
+        params.minimum_reads_for_u = 10000
+        do_em(params, outs[backend], em_backend=backend,
+              device=["cuda:0"] * 4 if backend == "sharded" else "cpu")
+    for suffix in (".EM", ".EM.WIMP", ".EM.reads2Taxon",
+                   ".EM.reads2Taxon.krona", ".EM.contigCoverage",
+                   ".EM.evidenceUnknownSpecies",
+                   ".EM.lengthAndIdentitiesPerMappingUnit"):
+        with open(outs["numpy"] + suffix, "rb") as a, \
+                open(outs["sharded"] + suffix, "rb") as b:
+            want = a.read()
+            assert want and b.read() == want, suffix

@@ -1,9 +1,9 @@
 """The port stands alone: with ``jax``, ``jaxlib`` and the JAX package
 ``metamaps_tpu`` blocked on ``sys.meta_path``, every ``metamaps_tpu_torch``
 module and ``chip_smoke.py`` import, and ``mapDirectly`` + ``classify``,
-then ``index`` -> ``mapAgainstIndex`` -> ``classify`` -> ``classifyU``, run
-through the port's CLI on a tiny database (torch engine and EM rounds on
-the CPU)."""
+``mapDirectly --mesh`` + ``classify --emBackend sharded``, then ``index``
+-> ``mapAgainstIndex`` -> ``classify`` -> ``classifyU``, run through the
+port's CLI on a tiny database (torch engine and EM rounds on the CPU)."""
 import os
 import subprocess
 import sys
@@ -64,6 +64,14 @@ SCRIPT = textwrap.dedent(
     assert meta["ReadsMapped"] == 6, meta
     assert stats["l2_candidates"] > 0 and stats["oracle_fallbacks"] == 0, stats
     assert os.path.getsize(out + ".EM.WIMP") > 0
+    out_mesh = os.path.join(root, "out_mesh")
+    assert main(["mapDirectly", "--reference", os.path.join(db, "DB.fa"),
+                 "--query", fq, "--output", out_mesh, "--all", "--minReadLen",
+                 "1000", "--mesh", "shard=2,data=2", "--device", "cpu"]) == 0
+    assert open(out_mesh).read() == open(out).read()
+    assert main(["classify", "--DB", db, "--mappings", out_mesh,
+                 "--emBackend", "sharded", "--device", "cpu"]) == 0
+    assert os.path.getsize(out_mesh + ".EM.WIMP") > 0
 
     with open(os.path.join(db, "selfSimilarities.txt"), "w") as f:
         for rl in (2000, 5000):
