@@ -6,7 +6,9 @@ holds each against its plain PyTorch version, drives the port's main path
 the port's CLI -- on a mock-community-scale synthetic database, checks the
 outputs, then drives the sweep bench, the path of the other sweep kernels,
 and then the lab's day-to-day path on the same data: ``index`` into stored
-shards, ``mapAgainstIndex``, ``classify`` and ``classifyU``.
+shards, ``mapAgainstIndex``, ``classify`` and ``classifyU``; then a long
+read, the mesh, and last the repo's at-scale accuracy experiment
+(ACCURACY.json's ``synthDB`` + ``experiments``) on the card.
 
     python3 chip_smoke.py                  # 36 genomes x 3 Mbp, 4096 reads
     python3 chip_smoke.py --reads 512 --genome-len 1000000
@@ -55,10 +57,12 @@ Phases (each prints its wall seconds; any failure exits non-zero):
    .U.reads2Taxon;
 9. long_read: a ~62 kb read of genome 0 mapped at ``--pi 60 --window 3``
    against that genome: its sketch (~31,000 hashes) is wider than the batch
-   kernel's shared-memory planes take (``BATCH_SP_MAX``), and its minimum
-   hits (~19) stay within the L1 detector's shift limit, so its slab is
+   kernel's shared-memory planes take (``BATCH_SP_MAX``), so its slab is
    swept on the card by the wide kernel (planes in device memory, each
-   candidate's events split into chunks swept at once); checks: the wide
+   candidate's events split into chunks swept at once); then the same read
+   at ``--pi 75 --window 3``, whose minimum hits (~250) are past the JAX
+   detector's shift limit of 32 (the JAX engine sends it to the serial
+   oracle, ~550 s), timed through the CLI; checks: in both runs the wide
    kernel ran, no oracle fallback, the read maps where it was drawn, and
    the wide kernel equals its plain version bit for bit on the read's real
    slab and on random and paired streams at widths up to the widest
@@ -86,7 +90,20 @@ Phases (each prints its wall seconds; any failure exits non-zero):
    card; and over four ranks of it) writes the ``--emBackend numpy``
    bytes in all seven .EM* files (the sharded round's time at 1M and 12M
    lines is in phase 5's em_bench rows);
-11. summary: reads/s of every mapping path, classify seconds, peak device
+11. experiments: ACCURACY.json's run at its full size through the port's
+   CLI -- ``synthDB --genera 36 --speciesPerGenus 3 --genomeLen 120000
+   --seed 42`` (108 genomes, 12.96 Mbp), then ``experiments --nReads 1500
+   --holdout auto6 --tools metamaps --seed 11 --meanLength 5000`` with the
+   torch engine and the EM rounds on the card (simulated reads, the full
+   and a six-species leave-out database, mapDirectly + classify on each,
+   read- and distribution-level validation); checks: the accuracy bands of
+   tests/test_accuracy_artifact.py:37-62, the batch kernel ran, oracle
+   fallbacks <= 1% of mappable reads, and a 64-read sample of each variant
+   gives the torch engine's lines with the serial oracle (the phase-5
+   worker pool); prints its results against ACCURACY.json's, key by key,
+   and its seconds (synthDB, simulate, reduced DB, and per variant the
+   index build and unify, the mapping loop, classify, the evaluation);
+12. summary: reads/s of every mapping path, classify seconds, peak device
    memory, then the card line, the kernel JSON line and the final JSON
    line.
 """
@@ -147,11 +164,11 @@ U_FILES = (".mapQ_U", ".U.WIMP", ".U.WIMP.absoluteClassifiedAt",
            ".U.reads2Taxon", ".U.lengthAndIdentitiesPerTaxonID",
            ".U.shiftedHistogramsPerTaxonID", ".EM2U.details", ".EM2U.summary")
 SAMPLE_PARTS = 8  # files (and oracle worker processes) of the sample
-# LONG_READ (62 kb): at w = 3 its planes are wider than BATCH_SP_MAX; at
-# LONG_READ_ARGS' --pi 60 the minimum hits of a ~31,000-hash sketch (~19)
-# are within the L1 detector's shift limit (32), so the read reaches the
-# sweep; at --pi 75 (~250) it would go to the serial oracle in both
-# packages' engines
+# LONG_READ (62 kb): at w = 3 its planes are wider than BATCH_SP_MAX, at
+# LONG_READ_ARGS' --pi 60 and at LONG_READ_PI75's --pi 75, whose minimum
+# hits (~250) pass the JAX detector's shift limit (32): the JAX engine
+# sends the read to the serial oracle there (~550 s), the port sweeps it
+LONG_READ_PI75 = ["--pi", "75", "--window", "3"]
 WIDE_STREAM_WIDTHS = (28928, 41088)  # just above BATCH_SP_MAX; widest bucket
 WIDE_FORCED_CHUNKS = (256, 2048)  # chunk lengths held against the default
 SETUP_EVENTS = 150_000  # one setup-shaped candidate at sp = BATCH_SP_MAX
@@ -166,6 +183,26 @@ MESH_ROWS = 512
 MESH_ORACLE_WORKERS = 2  # worker processes per partition for the sample,
 # each mapping its share of the sample's reads
 EM_SHARDED_RANKS = 4
+# phase 11: ACCURACY.json's command at its full size (its "db" builder and
+# "command"), through the port's CLI on the card
+ACC_SYNTH_ARGS = ["--genera", "36", "--speciesPerGenus", "3", "--genomeLen",
+                  "120000", "--seed", "42"]
+ACC_EXPERIMENT_ARGS = ["--name", "acc", "--nReads", "1500", "--holdout",
+                       "auto6", "--tools", "metamaps", "--seed", "11",
+                       "--meanLength", "5000"]
+ACC_MIN_READ_LEN = 2000  # experiments' --minReadLen default
+# the bands of tests/test_accuracy_artifact.py:37-62 over results.json
+ACC_FULL_MIN_READS = 1000  # full DB: reads with an absolute assignment
+ACC_FULL_MIN = 0.95  # full DB: absolute and species accuracy
+ACC_HOLDOUT_ABSOLUTE_MIN = 0.80  # leave-out DB: all reads, absolute
+ACC_NOVEL_MIN_READS = 20  # leave-out DB: reads of the removed species
+ACC_NOVEL_ABSOLUTE_MAX = 0.05
+ACC_NOVEL_GENUS_MIN = 0.5
+ACC_IN_DB_SPECIES_MIN = 0.95  # leave-out DB: reads of species in the DB
+ACC_SPECIES_L1_MAX = 0.3  # both variants: composition distances
+ACC_GENUS_L1_MAX = 0.25
+ACC_GENUS_RECALL_MIN = 0.8
+ACC_SAME_REL = 1e-12  # a float that differs only in its last bits
 
 # the serial oracle takes seconds per read at this database size, so the
 # sample is mapped by a pool of spawned workers that load the shard from disk
@@ -501,8 +538,6 @@ def long_read(run: dict, times: dict, card: str, counters, dev,
         f"{minhits}")
     if sketch_size < l2_sweep.BATCH_SP_MAX:
         raise AssertionError("the long read's planes fit shared memory")
-    if minhits - 1 >= l1.MINHITS_SHIFT_MAX:
-        raise AssertionError("the long read would go to the oracle")
     for fn in counters:
         fn.launches = 0
     l1._MINHITS.clear()  # the table as a fresh process computes it
@@ -614,7 +649,58 @@ def long_read(run: dict, times: dict, card: str, counters, dev,
             ms_by_chunk=chunk_ms, at_batch_sp=at_batch_sp)
         row["launches"] = launches[wide.__name__]
         del engine, shards
+    info["pi75"] = long_read_pi75(run, times, card, counters)
     return info, row
+
+
+def long_read_pi75(run: dict, times: dict, card: str, counters) -> dict:
+    """The long read at ``LONG_READ_PI75`` through the CLI: past the JAX
+    detector's shift limit, swept by the wide kernel. Returns its numbers."""
+    out = os.path.join(run["dir"], "out_pi75")
+    argv = ["mapDirectly", "--reference", run["ref"], "--query", run["fq"],
+            "--output", out, "--all", "--mapping-engine", "torch",
+            *LONG_READ_PI75]
+    params = sketch_params(argv[1:])
+    k, w = params.kmer_size, params.window_size
+    sketch_size = mapper_oracle.sketch_read(run["read"], k, w)[0].size
+    minhits = int(l1.minhits_table(sketch_size, k,
+                                   params.percentage_identity)[sketch_size])
+    for fn in counters:
+        fn.launches = 0
+    l1._MINHITS.clear()  # the table as a fresh process computes it
+    stats: dict = {}
+    with Phase("long_read_pi75", times):
+        if cli_main(argv, engine_stats=stats) != 0:
+            raise AssertionError("mapDirectly on the long read at --pi 75 "
+                                 "failed")
+        torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in counters}
+    with open(out) as f:
+        lines = [parse_mapping_line(line) for line in f]
+    info = dict(args=LONG_READ_PI75, sketch=sketch_size, minhits=minhits,
+                lines=len(lines), launches=launches,
+                oracle_fallbacks=stats["oracle_fallbacks"],
+                map_s=stats["map_s"], minhits_s=stats["minhits_s"],
+                mapDirectly_s=times["long_read_pi75"], card=card)
+    log("long read at --pi 75 " + json.dumps(info) + "; the serial oracle "
+        "took ~550 s for this read (PERF.md §6)")
+    if minhits <= 32:
+        raise AssertionError(f"minimum hits {minhits} at --pi 75: within "
+                             "the JAX detector's shift limit")
+    if launches[l2_sweep.l2_event_sweep_wide.__name__] <= 0:
+        raise AssertionError("the wide sweep kernel never ran on the long "
+                             "read at --pi 75")
+    if stats["oracle_fallbacks"] != 0 or stats["reads_mappable"] != 1:
+        raise AssertionError("the long read at --pi 75 went to the oracle")
+    if not lines:
+        raise AssertionError("the long read at --pi 75 did not map")
+    best = max(lines, key=lambda m: m.intersection)
+    if (best.contig_id != run["contig"]
+            or abs(best.ref_start - run["pos"]) > LONG_READ // 20):
+        raise AssertionError(f"the long read at --pi 75 mapped to "
+                             f"{best.contig_id}:{best.ref_start}, drawn at "
+                             f"{run['pos']}")
+    return info
 
 
 def mesh_phase(args, times: dict, db: str, fq: str, reads, shard, params,
@@ -820,6 +906,223 @@ def mesh_cli_and_em(long_run: dict, times: dict, db: str, out_mesh: str,
         log(f"classify --emBackend sharded (CLI: {torch.cuda.device_count()} "
             f"rank(s); and {EM_SHARDED_RANKS} ranks of {dev}): 7 .EM* files "
             "identical to --emBackend numpy; " + json.dumps(info))
+    return info
+
+
+def accuracy_band_failures(results: dict) -> list:
+    """Where ``results`` (an ``experiments`` results.json) leaves the bands
+    of tests/test_accuracy_artifact.py:37-62; empty when it is inside."""
+    full = results["full__metamaps"]["reads"]["ALL"]
+    hold = results["holdout__metamaps"]["reads"]
+    checks = [
+        ("full absolute N", full["absolute"]["N"], ">=", ACC_FULL_MIN_READS),
+        ("full absolute accuracy", full["absolute"]["accuracy"], ">=",
+         ACC_FULL_MIN),
+        ("full species accuracy", full["species"]["accuracy"], ">=",
+         ACC_FULL_MIN),
+        ("holdout absolute accuracy", hold["ALL"]["absolute"]["accuracy"],
+         ">=", ACC_HOLDOUT_ABSOLUTE_MIN),
+        ("novel absolute N", hold["novel"]["absolute"]["N"], ">=",
+         ACC_NOVEL_MIN_READS),
+        ("novel absolute accuracy", hold["novel"]["absolute"]["accuracy"],
+         "<=", ACC_NOVEL_ABSOLUTE_MAX),
+        ("novel genus accuracy", hold["novel"]["genus"]["accuracy"], ">=",
+         ACC_NOVEL_GENUS_MIN),
+        ("in-DB species accuracy", hold["truthLeafInDB"]["species"]["accuracy"],
+         ">=", ACC_IN_DB_SPECIES_MIN),
+    ]
+    for key in ("full__metamaps", "holdout__metamaps"):
+        d = results[key]["distribution"]
+        checks += [(f"{key} species L1", d["species"]["L1"], "<=",
+                    ACC_SPECIES_L1_MAX),
+                   (f"{key} genus L1", d["genus"]["L1"], "<=",
+                    ACC_GENUS_L1_MAX),
+                   (f"{key} genus binary recall", d["genus"]["binary_recall"],
+                    ">=", ACC_GENUS_RECALL_MIN)]
+    return [f"{name} {value} (band {op} {limit})"
+            for name, value, op, limit in checks
+            if not (value >= limit if op == ">=" else value <= limit)]
+
+
+def flat_items(tree, prefix: str = "") -> dict:
+    """{"a/b/c": leaf} of nested dicts."""
+    if not isinstance(tree, dict):
+        return {prefix: tree}
+    out = {}
+    for key, value in tree.items():
+        out.update(flat_items(value, f"{prefix}/{key}" if prefix else key))
+    return out
+
+
+def same_value(a, b, rel: float = 0.0) -> bool:
+    """Equality of two JSON leaves within ``rel`` (relative, floats only),
+    NaN equal to NaN (r2 of a level with one taxon)."""
+    if isinstance(a, float) and isinstance(b, float):
+        if a != a or b != b:
+            return a != a and b != b
+        return abs(a - b) <= rel * max(abs(a), abs(b))
+    return type(a) is type(b) and a == b
+
+
+def mapping_lines_by_read(path: str) -> dict:
+    """{read id: its lines' first 12 fields} of a mappings file (the fields
+    the engine writes; unify appends the mapping qualities)."""
+    out: dict = {}
+    with open(path) as f:
+        for line in f:
+            fields = line.split(" ")
+            out.setdefault(fields[0], []).append(" ".join(fields[:12]))
+    return out
+
+
+def oracle_sample(db: str, reads_fq: str, mappings: str, workdir: str,
+                  ) -> tuple:
+    """The first ``SAMPLE`` mappable reads of ``reads_fq`` mapped by the
+    serial oracle against ``db`` (the index ``mapDirectly --all
+    --minReadLen ACC_MIN_READ_LEN`` builds, in the smoke's worker pool),
+    held against their lines in ``mappings``. Returns (reads, lines)."""
+    db_fa = os.path.join(db, "DB.fa")
+    params = sketch_params(["--reference", db_fa, "--minReadLen",
+                            str(ACC_MIN_READ_LEN)])
+    params.report_all = True
+    shards = []
+    build_shards(params, 0, lambda sh, n: shards.append(sh))
+    shard = shards[0]
+    shard_path = os.path.join(workdir, "shard.npz")
+    os.makedirs(workdir, exist_ok=True)
+    shard.save(shard_path)
+    sample = []
+    for name, seq in read_sequences(reads_fq):
+        if len(seq) >= max(params.window_size, params.kmer_size,
+                           params.min_read_length):
+            sample.append((name, seq))
+            if len(sample) == SAMPLE:
+                break
+    workers = min(8, os.cpu_count() or 1)
+    with ProcessPoolExecutor(
+            workers, mp_context=multiprocessing.get_context("spawn"),
+            initializer=_oracle_worker_init,
+            initargs=(shard_path, params)) as pool:
+        maps = list(pool.map(_oracle_map, [seq for _, seq in sample]))
+    torch_lines = mapping_lines_by_read(mappings)
+    n_lines = 0
+    for (name, _), ms in zip(sample, maps, strict=True):
+        want = [MappingLine(
+            read_id=name, read_len=m.query_len, strand=m.strand,
+            contig_id=shard.contig_names[m.ref_seqid],
+            contig_len=shard.contig_lengths[m.ref_seqid],
+            ref_start=m.ref_start, ref_end=m.ref_end,
+            identity=m.nuc_identity, intersection=m.conserved,
+            sketch_size=m.sketch_size).format()
+            for m in mapper_oracle.report_filter(ms, report_all=True)]
+        got = torch_lines.get(name, [])
+        if got != want:
+            raise AssertionError(f"{mappings}, {name}: torch engine {got} != "
+                                 f"oracle {want}")
+        n_lines += len(want)
+    return len(sample), n_lines
+
+
+def experiments_phase(args, times: dict, card: str, counters) -> dict:
+    """ACCURACY.json's run at its full size through the port's CLI:
+    ``synthDB`` and then ``experiments`` with the torch engine and the EM
+    rounds on the card. Checks the bands, the batch kernel's launches, the
+    oracle fallbacks and a sample of each variant against the serial
+    oracle; prints the comparison with ACCURACY.json's results and where
+    the time went. Returns the phase's numbers."""
+    acc_db = os.path.join(args.workdir, "acc", "DB")
+    store = os.path.join(args.workdir, "acc", "store")
+    with Phase("acc_synthDB", times):
+        if os.path.exists(os.path.dirname(acc_db)):
+            shutil.rmtree(os.path.dirname(acc_db))
+        if cli_main(["synthDB", "--out", acc_db, *ACC_SYNTH_ARGS]) != 0:
+            raise AssertionError("synthDB failed")
+    for fn in counters:
+        fn.launches = 0
+    l1._MINHITS.clear()  # the table as a fresh process computes it
+    run_stats: dict = {}
+    with Phase("experiments", times):
+        if cli_main(["experiments", "--DB", acc_db, "--store", store,
+                     *ACC_EXPERIMENT_ARGS, "--engine", "torch", "--device",
+                     "cuda"], engine_stats=run_stats) != 0:
+            raise AssertionError("experiments failed")
+        torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in counters}
+
+    with Phase("experiments_checks", times):
+        root = os.path.join(store, "acc")
+        with open(os.path.join(root, "results.json")) as f:
+            results = json.load(f)
+        runs = run_stats["runs"]
+        info = dict(card=card, launches=launches, seconds=dict(
+            synthDB=times["acc_synthDB"], experiments=times["experiments"],
+            simulate=run_stats["simulate_s"],
+            reduced_db=run_stats["reduced_db_s"]["holdout"],
+            **{key.split("__")[0]: dict(
+                index_and_unify=r["mapDirectly_s"] - r["map_s"],
+                map_s=r["map_s"], minhits_s=r["minhits_s"],
+                classify=r["classify_s"], evaluate=r["evaluate_s"])
+               for key, r in runs.items()}),
+            reads_mappable={k: r["reads_mappable"] for k, r in runs.items()},
+            reads_mapped={k: r["reads_mapped"] for k, r in runs.items()},
+            oracle_fallbacks={k: r["oracle_fallbacks"]
+                              for k, r in runs.items()},
+            l2_candidates={k: r["l2_candidates"] for k, r in runs.items()})
+        log("experiments " + json.dumps(info))
+        # L1, L2 and r2 sum over a set of taxon IDs (sim/validation.py),
+        # whose order follows the process's string hashes: their last bits
+        # move between processes, so the comparison also counts the keys
+        # equal within ACC_SAME_REL
+        with open(os.path.join(ROOT, "ACCURACY.json")) as f:
+            want = flat_items(json.load(f)["results"])
+        got = flat_items(results)
+        keys = sorted(set(want) | set(got))
+        exact = [k for k in keys if k in want and k in got
+                 and same_value(got[k], want[k])]
+        differ = [k for k in keys if k not in want or k not in got
+                  or not same_value(got[k], want[k], ACC_SAME_REL)]
+        last_bits = sorted(set(keys) - set(exact) - set(differ))
+        info["accuracy_json"] = dict(keys=len(keys), exact=len(exact),
+                                     last_bits=last_bits, differ=differ)
+        log(f"results against ACCURACY.json's results, key by key: "
+            f"{len(keys)} keys, {len(exact)} equal, {len(last_bits)} equal "
+            f"within {ACC_SAME_REL} relative (summation order) "
+            f"{json.dumps(last_bits[:12])}, {len(differ)} differ"
+            + ("" if not differ else "; first: " + json.dumps(
+                [(k, got.get(k), want.get(k)) for k in differ[:12]])))
+        failures = accuracy_band_failures(results)
+        for key in ("full__metamaps", "holdout__metamaps"):
+            r = results[key]["reads"]
+            log(f"{key}: " + json.dumps({
+                cat: {lv: r[cat][lv]["accuracy"] for lv in
+                      ("absolute", "species", "genus")}
+                for cat in r}) + "; distribution " + json.dumps(
+                {lv: {m: results[key]["distribution"][lv][m]
+                      for m in ("L1", "binary_recall")}
+                 for lv in ("species", "genus")}))
+        if failures:
+            raise AssertionError("outside the accuracy bands: "
+                                 + "; ".join(failures))
+        if launches[l2_sweep.l2_event_sweep_batch.__name__] <= 0:
+            raise AssertionError("the batch sweep kernel never ran in "
+                                 "experiments")
+        mappable = sum(info["reads_mappable"].values())
+        fallbacks = sum(info["oracle_fallbacks"].values())
+        if fallbacks > 0.01 * mappable:
+            raise AssertionError(f"{fallbacks} oracle fallbacks of "
+                                 f"{mappable} mappable reads")
+        info["sample"] = {}
+        for variant, db in (("full", acc_db),
+                            ("holdout", os.path.join(root, "dbs", "holdout"))):
+            n_reads, n_lines = oracle_sample(
+                db, os.path.join(root, "reads.fastq"),
+                os.path.join(root, "runs", f"{variant}__metamaps", "out"),
+                os.path.join(args.workdir, "acc", f"sample_{variant}"))
+            info["sample"][variant] = dict(reads=n_reads, lines=n_lines)
+        log(f"{SAMPLE}-read samples of both variants: lines "
+            + json.dumps(info["sample"]) + " identical with the torch engine "
+            "and the serial oracle; accuracy bands of "
+            "tests/test_accuracy_artifact.py held")
     return info
 
 
@@ -1203,17 +1506,29 @@ def main(argv=None) -> int:
     mesh_batch = mesh["launches"][l2_sweep.l2_event_sweep_batch.__name__]
     cli_batch = mesh["cli_launches"][l2_sweep.l2_event_sweep_batch.__name__]
     cli_wide = mesh["cli_launches"][l2_sweep.l2_event_sweep_wide.__name__]
+
+    # ---- 11. ACCURACY.json's experiment on the card -----------------------
+    acc = experiments_phase(args, times, card, counters)
+    batch_name = l2_sweep.l2_event_sweep_batch.__name__
+    wide_name = l2_sweep.l2_event_sweep_wide.__name__
+    acc_batch, acc_wide = acc["launches"][batch_name], acc["launches"][wide_name]
+    pi75 = long_info["pi75"]["launches"]
     batch_row.update(launches=(launches + mai["sweep_launches"] + lr_batch
-                               + mesh_batch + cli_batch),
+                               + pi75[batch_name] + mesh_batch + cli_batch
+                               + acc_batch),
                      launches_mapDirectly=launches,
                      launches_mapAgainstIndex=mai["sweep_launches"],
-                     launches_long_read=lr_batch, launches_mesh=mesh_batch,
-                     launches_mesh_cli=cli_batch)
-    wide_row.update(launches=wide_row["launches"] + cli_wide,
+                     launches_long_read=lr_batch,
+                     launches_long_read_pi75=pi75[batch_name],
+                     launches_mesh=mesh_batch, launches_mesh_cli=cli_batch,
+                     launches_experiments=acc_batch)
+    wide_row.update(launches=(wide_row["launches"] + pi75[wide_name]
+                              + cli_wide + acc_wide),
                     launches_long_read=wide_row["launches"],
-                    launches_mesh_cli=cli_wide)
+                    launches_long_read_pi75=pi75[wide_name],
+                    launches_mesh_cli=cli_wide, launches_experiments=acc_wide)
 
-    # ---- 11. summary ------------------------------------------------------
+    # ---- 12. summary ------------------------------------------------------
     map_s = engine_stats["map_s"]
     summary = {
         "reads": len(reads), "reads_mappable": mappable,
@@ -1229,7 +1544,8 @@ def main(argv=None) -> int:
         "sweep_launches": launches, "phase_s": times,
         "mapping_phase_s": breakdown, "sweep_bench_ms": scenario_ms,
         "sm_clock_max_mhz": clock_mhz, "map_against_index": mai,
-        "long_read": long_info, "mesh": mesh, "card": card,
+        "long_read": long_info, "mesh": mesh, "experiments": acc,
+        "card": card,
     }
     log("summary " + json.dumps(summary))
     shutil.rmtree(args.workdir, ignore_errors=True)

@@ -11,10 +11,13 @@ static shifts. Here the hits of the whole batch are one flat CSR expansion
 (``repeat_interleave``), sorted once by (read, seqid, wpos); the shifted
 neighbour is a plain index offset and regions come out as a flat list.
 
-The JAX engine's capacities are kept as overflow flags, so exactly the
-reads it sends to the serial oracle are flagged here too: more than
-``hits_max`` hits, more than ``cands_max`` regions, or a minimum-hits value
-beyond its shift limit.
+The JAX engine's capacities are kept as overflow flags: a read with more
+than ``hits_max`` hits or more than ``cands_max`` regions goes to the
+serial oracle, as there. The JAX detector's limit of 32 static shifts
+(``metamaps_tpu/ops/batch_map.py:51``), which sends a read whose minimum
+hits pass it to the oracle, is not kept: here the shift is an index offset
+of any size, and such a read (a ~60 kb read at w = 3 and ``--pi 75`` has
+~250) gets the oracle's lines from its own L1 and L2.
 """
 from __future__ import annotations
 
@@ -28,7 +31,6 @@ from metamaps_tpu_torch import stats
 
 from .tables import DeviceTables
 
-MINHITS_SHIFT_MAX = 32  # the JAX detector's static shift limit
 _LOW32 = 0xFFFFFFFF
 _MINHITS: dict = {}  # (k, pi) -> read-only table, grown on demand
 _MINHITS_BLOCK = 2048  # sketch sizes evaluated at a time
@@ -165,9 +167,8 @@ def l1_regions(tables: DeviceTables, start, count, total, sketch_size,
     B = start.shape[0]
     read_lens = read_lens.to(torch.int64)
     h_ovf = total > hits_max
-    m = torch.clamp(minhits[sketch_size], min=1)
-    d = m - 1
-    overflow = h_ovf | (d >= MINHITS_SHIFT_MAX)
+    d = torch.clamp(minhits[sketch_size], min=1) - 1
+    overflow = h_ovf
 
     # ---- CSR expansion of every (read, sketch slot) run -----------------
     cnt = torch.where(h_ovf[:, None], 0, count)
@@ -225,7 +226,7 @@ def l1_regions(tables: DeviceTables, start, count, total, sketch_size,
     r_end.scatter_reduce_(0, rid, c_end, "amax")
 
     n_regions = torch.bincount(r_read, minlength=B)
-    overflow |= n_regions > cands_max
+    overflow = overflow | (n_regions > cands_max)
     beg0, last_end = occurrence_window(tables, r_seq, r_start,
                                        r_end + read_lens[r_read])
     return L1Regions(r_read, r_seq, r_start, r_end, beg0, last_end,

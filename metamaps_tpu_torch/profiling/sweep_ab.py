@@ -70,7 +70,7 @@ KERNELS = {
     "wide": ("l2_sweep", "l2_event_sweep_wide", lambda sp: sp),
 }
 #: chip_smoke.py's long read: bp, and the arguments that bring its slab to
-#: the wide kernel (minimum hits ~19, within the L1 shift limit)
+#: the wide kernel (minimum hits ~19; at --pi 75, ~250, it goes there too)
 LONG_READ = 62_000
 LONG_READ_ARGS = ["--pi", "60", "--window", "3"]
 LONG_SHAPE = (185_344, 30_848)  # E2, sp of the long read's slab

@@ -166,29 +166,28 @@ def _long_read_case(rng, window):
     return shard, long_read, start, revcomp(genomes[1][30_000:35_000])
 
 
-def test_long_read_at_pi75_goes_to_the_oracle(cuda, monkeypatch):
+def test_long_read_at_pi75_sweeps_wide_on_the_card(cuda):
     """A 60 kb read at --pi 75 (w = 3) sketches to ~30,000 hashes, whose
-    minimum hits (~250) are beyond the L1 detector's shift limit of 32, as
-    in the JAX engine: the read goes to the serial oracle (stubbed here: it
-    takes minutes on such a read) and nothing raises, while a read of
-    ordinary length beside it goes through the kernel."""
+    minimum hits (~250) are beyond the JAX detector's shift limit of 32, so
+    the JAX engine sends it to the serial oracle. The port's L1 has no such
+    limit: the read's slab is swept on the card by the wide kernel, with no
+    oracle fallback, and it gets the oracle's lines (about a minute of host
+    time for the oracle), while a read of ordinary length beside it goes
+    through the batch kernel."""
     shard, long_read, _, short = _long_read_case(np.random.default_rng(60), 3)
     params = Parameters(kmer_size=16, window_size=3, min_read_length=1000,
                         percentage_identity=75.0)
     assert mapper_oracle.sketch_read(long_read, 16, 3)[0].size >= BATCH_SP_MAX
-    oracle = mapper_oracle.map_read
-    stubbed = []
-    monkeypatch.setattr(
-        mapper_oracle, "map_read",
-        lambda sh, p, seq: stubbed.append(len(seq)) or [])
     engine = TorchMapperEngine(shard, params, device="cuda")
-    before = l2_event_sweep_batch.launches
+    before = (l2_event_sweep_wide.launches, l2_event_sweep_batch.launches)
     got = engine.map_reads([long_read, short])
     torch.cuda.synchronize()
-    assert engine.stats["oracle_fallbacks"] == 1
-    assert stubbed == [len(long_read)] and got[0] == []
-    assert l2_event_sweep_batch.launches > before
-    assert got[1] == oracle(shard, params, short)
+    assert engine.stats["oracle_fallbacks"] == 0
+    assert l2_event_sweep_wide.launches > before[0]
+    assert l2_event_sweep_batch.launches > before[1]
+    assert got[1] == mapper_oracle.map_read(shard, params, short)
+    assert got[0] and got[0] == mapper_oracle.map_read(shard, params,
+                                                       long_read)
 
 
 def test_long_read_sweeps_wide_on_the_card(cuda):
@@ -564,3 +563,30 @@ def test_sharded_em_on_one_card_writes_numpy_bytes(mesh_mini, tmp_path):
                 open(outs["sharded"] + suffix, "rb") as b:
             want = a.read()
             assert want and b.read() == want, suffix
+
+
+def test_experiments_on_the_card_writes_the_cpu_store(cuda, tmp_path):
+    """A tiny ``experiments`` (full and a two-taxon leave-out) with the
+    torch engine and the EM rounds on the card writes the bytes of the same
+    run with ``--device cpu`` in every file of its store (the plots aside),
+    through the batch sweep kernel."""
+    from metamaps_tpu_torch.cli import main as port_cli_main
+
+    from util_db import make_mini_db
+    from util_torch import run_in, tree_bytes
+
+    make_mini_db(str(tmp_path / "DB"), np.random.default_rng(777),
+                 n_genomes=5, genome_len=30000)
+    trees = {}
+    for device in ("cpu", "cuda"):
+        before = l2_event_sweep_batch.launches
+        assert run_in(str(tmp_path / device), port_cli_main, [
+            "experiments", "--DB", "../DB", "--store", "store", "--name",
+            "exp1", "--nReads", "40", "--holdout", "auto2", "--seed", "3",
+            "--meanLength", "4000", "--device", device]) == 0
+        assert (l2_event_sweep_batch.launches > before) == (device == "cuda")
+        trees[device] = tree_bytes(str(tmp_path / device))
+    assert "store/exp1/results.json" in trees["cpu"]
+    assert sorted(trees["cuda"]) == sorted(trees["cpu"])
+    for name, want in trees["cpu"].items():
+        assert trees["cuda"][name] == want, name

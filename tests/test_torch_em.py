@@ -145,14 +145,23 @@ def test_classify_raises_without_cuda(mini, tmp_path):
 
 
 def test_unported_subcommands_refuse(capsys):
-    """Subcommands the port lacks refuse; the five core ones are ported."""
+    """The seven subcommands the port lacks refuse; the five core ones and
+    the sixteen database and simulation tools are ported."""
     from metamaps_tpu_torch.cli import NOT_PORTED
 
-    assert port_cli_main(["selfSimilarity", "--DB", "x"]) == 2
-    assert port_cli_main(["synthDB"]) == 2
+    assert port_cli_main(["convertDB", "--DB", "x"]) == 2
+    assert port_cli_main(["downloadRefSeq"]) == 2
     assert "not ported yet" in capsys.readouterr().err
+    assert sorted(NOT_PORTED) == sorted([
+        "splitEggNog", "geneLevelAnalysis", "filterWIMP", "convertDB",
+        "evaluateExternal", "plotIdentities", "downloadRefSeq"])
     for name in ("index", "mapDirectly", "mapAgainstIndex", "classify",
-                 "classifyU"):
+                 "classifyU", "experiments", "synthDB", "simulate",
+                 "buildTruth", "truthDataset", "extractReads",
+                 "firstQuartileScore", "shortenContigIDs",
+                 "addTaxonIDToFasta", "buildDB", "annotate", "validateDB",
+                 "DBinfo", "selfSimilarity", "compareMappings",
+                 "benchmarkInference"):
         assert name not in NOT_PORTED
 
 

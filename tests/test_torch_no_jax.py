@@ -3,7 +3,9 @@
 module and ``chip_smoke.py`` import, and ``mapDirectly`` + ``classify``,
 ``mapDirectly --mesh`` + ``classify --emBackend sharded``, then ``index``
 -> ``mapAgainstIndex`` -> ``classify`` -> ``classifyU``, run through the
-port's CLI on a tiny database (torch engine and EM rounds on the CPU)."""
+port's CLI on a tiny database (torch engine and EM rounds on the CPU);
+then ``synthDB`` -> ``experiments`` and ``annotate`` -> ``buildDB`` ->
+``validateDB``."""
 import os
 import subprocess
 import sys
@@ -94,6 +96,41 @@ SCRIPT = textwrap.dedent(
                  "2"]) == 0
     for suffix in (".mapQ_U", ".U.WIMP", ".U.reads2Taxon", ".EM2U.summary"):
         assert os.path.getsize(out2 + suffix) > 0, suffix
+
+    synth = os.path.join(root, "synth")
+    assert main(["synthDB", "--out", synth, "--genera", "2",
+                 "--speciesPerGenus", "2", "--genomeLen", "30000", "--seed",
+                 "5"]) == 0
+    run_stats = {}
+    assert main(["experiments", "--DB", synth, "--store",
+                 os.path.join(root, "store"), "--name", "tiny", "--nReads",
+                 "12", "--holdout", "auto1", "--meanLength", "3000", "--seed",
+                 "2", "--device", "cpu"], engine_stats=run_stats) == 0
+    assert set(run_stats["runs"]) == {"full__metamaps", "holdout__metamaps"}
+    assert os.path.getsize(os.path.join(root, "store", "tiny",
+                                        "results.json")) > 0
+
+    tax = os.path.join(root, "tax")
+    os.makedirs(tax)
+    with open(os.path.join(tax, "names.dmp"), "w") as f:
+        for node, name in ((1, "all"), (50, "G"), (500, "S")):
+            f.write(f"{node}\\t|\\t{name}\\t|\\t\\t|\\tscientific name\\t|\\n")
+    with open(os.path.join(tax, "nodes.dmp"), "w") as f:
+        for node, parent, rank in ((1, 1, "no rank"), (50, 1, "genus"),
+                                   (500, 50, "species")):
+            f.write(f"{node}\\t|\\t{parent}\\t|\\t{rank}\\t|\\n")
+    fastas = []
+    for i in range(2):
+        fastas.append(os.path.join(root, f"g{i}.fa"))
+        with open(fastas[-1], "w") as f:
+            f.write(f">g{i}\\n{random_genome(rng, 5000).tobytes().decode()}\\n")
+    annotated = os.path.join(root, "annotated.fa")
+    assert main(["annotate", "--genomes", ",".join(f"{fa}=500" for fa in fastas),
+                 "--output", annotated, "--taxonomy", tax]) == 0
+    db2 = os.path.join(root, "DB2")
+    assert main(["buildDB", "--DB", db2, "--FASTAs", annotated, "--taxonomy",
+                 tax]) == 0
+    assert main(["validateDB", "--DB", db2]) == 0
     assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
     print("ok")
     """
