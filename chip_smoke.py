@@ -103,14 +103,35 @@ Phases (each prints its wall seconds; any failure exits non-zero):
    worker pool); prints its results against ACCURACY.json's, key by key,
    and its seconds (synthDB, simulate, reduced DB, and per variant the
    index build and unify, the mapping loop, classify, the evaluation);
-12. summary: reads/s of every mapping path, classify seconds, peak device
-   memory, then the card line, the kernel JSON line and the final JSON
-   line.
+12. tools: the host tools users run on what the card wrote, through the
+   port's CLI: ``geneLevelAnalysis`` and ``filterWIMP`` (at 0.8 and 0.999)
+   on phase 4's ``mapDirectly`` -> ``classify`` output, after a
+   ``DB_annotations.txt`` (a gene every few kb of every contig) and a
+   ``DB_proteins.faa.annotated`` made from ``--seed``; ``convertDB`` to
+   kraken, centrifuge and mash on phase 4's database; ``splitEggNog``
+   split -> submit -> collect on a protein FASTA made from ``--seed`` (the
+   job scripts run an annotation stand-in, as emapper.py is not
+   installed); ``evaluateExternal`` on phase 11's full-database run
+   against its truth; ``plotIdentities`` and ``evaluateExternal --plots``
+   where matplotlib is installed. Checks: every gene row has a read and a
+   median identity in [0, 1], the reads with and without an annotated
+   contig add up to the reads in .EM, 0.999 leaves every read
+   unclassified, every kraken header carries its taxon, one
+   seqid2taxid.map line per contig, one mash FASTA per taxon, the chunks
+   hold the input's records and residues, one collected row per protein,
+   the reads counted are the truth's and every accuracy lies in [0, 1];
+   each subcommand's seconds;
+13. summary: reads/s of every mapping path, classify seconds, peak device
+   memory, the tools' seconds, then the card line, the kernel JSON line
+   and the final JSON line.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
+import importlib.util
+import io
 import json
 import multiprocessing
 import os
@@ -136,8 +157,8 @@ from metamaps_tpu_torch.engine.index import (
 )
 from metamaps_tpu_torch.engine.mapper_torch import TorchMapperEngine
 from metamaps_tpu_torch.io.fasta import read_sequences
-from metamaps_tpu_torch.io.mappings import (MappingLine, parse_mapping_line,
-                                            read_meta)
+from metamaps_tpu_torch.io.mappings import (MappingLine, iter_reads_grouped,
+                                            parse_mapping_line, read_meta)
 from metamaps_tpu_torch.io.native import winnow_native
 from metamaps_tpu_torch.ops import l1, l2_sweep, l2_sweep_parts
 from metamaps_tpu_torch.engine.mapwrap import (map_query_file_against_shard,
@@ -148,6 +169,7 @@ from metamaps_tpu_torch.params import Parameters
 from metamaps_tpu_torch.profiling import em_bench, sweep_bench
 from metamaps_tpu_torch.profiling.sweep_ab import LONG_READ, LONG_READ_ARGS
 from metamaps_tpu_torch.sim.synth_db import ont_read, write_synth_db_dir
+from metamaps_tpu_torch.taxonomy import extract_taxon_id
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SAMPLE = 64  # reads checked line by line against the serial oracle
@@ -203,6 +225,26 @@ ACC_SPECIES_L1_MAX = 0.3  # both variants: composition distances
 ACC_GENUS_L1_MAX = 0.25
 ACC_GENUS_RECALL_MIN = 0.8
 ACC_SAME_REL = 1e-12  # a float that differs only in its last bits
+# phase 12: a gene of 600-2400 bases every TOOLS_GENE_STEP bases of every
+# contig; a protein FASTA of TOOLS_PROTEINS records of 100-600 residues,
+# split into chunks of about TOOLS_TARGET_CHARS characters
+TOOLS_GENE_STEP = 3000
+TOOLS_PROTEINS = 20000
+TOOLS_TARGET_CHARS = 1_000_000
+# the annotation stand-in the job scripts run: the chunk's emapper table
+# (three comment lines, the header, one row per protein)
+FAKE_EMAPPER = """import sys
+inp, out = sys.argv[1], sys.argv[2]
+with open(out + ".emapper.annotations", "w") as o:
+    o.write("# stand-in\\n#\\n#\\n#query_name\\tGO_terms\\tKEGG_KOs\\t"
+            "BiGG_reactions\\tOGs\\tCOG cat\\n")
+    for line in open(inp):
+        if line.startswith(">"):
+            pid = line[1:].split()[0]
+            n = int(pid.split("_")[1].split(".")[0])
+            o.write(f"{pid}\\tGO:{n % 97:07d}\\tK{n % 1000:05d}\\t\\t"
+                    f"COG{n % 211:04d}\\t{'JKLDVT'[n % 6]}\\n")
+"""
 
 # the serial oracle takes seconds per read at this database size, so the
 # sample is mapped by a pool of spawned workers that load the shard from disk
@@ -1126,6 +1168,218 @@ def experiments_phase(args, times: dict, card: str, counters) -> dict:
     return info
 
 
+def write_annotations(db: str, rng) -> int:
+    """``DB_annotations.txt`` with a gene of 600-2400 bases every
+    ``TOOLS_GENE_STEP`` bases of every contig of ``db``, and the headerless
+    ``DB_proteins.faa.annotated`` of ``tests/test_tools.py`` (protein,
+    eggNOG, a class), both drawn from ``rng``. Returns the gene count."""
+    n = 0
+    with open(os.path.join(db, "DB_annotations.txt"), "w") as ann, \
+            open(os.path.join(db, "DB_proteins.faa.annotated"), "w") as prot:
+        ann.write("ContigId\tStart\tStop\tGeneName\tGeneLocusTag\t"
+                  "CDSProteinId\tCDSProduct\n")
+        for name, seq in read_sequences(os.path.join(db, "DB.fa")):
+            for start in range(0, len(seq) - 2400, TOOLS_GENE_STEP):
+                stop = start + int(rng.integers(600, 2401))
+                ann.write(f"{name}\t{start}\t{stop}\tgene{n}\tLT{n}\tWP_{n}"
+                          f"\tproduct {n}\n")
+                prot.write(f"WP_{n}\teggNOG\tCOG{int(rng.integers(0, 500)):04d}"
+                           "\n")
+                n += 1
+    return n
+
+
+def write_proteins(path: str, rng) -> tuple:
+    """A protein FASTA of ``TOOLS_PROTEINS`` records of 100-600 residues
+    in lines of 60, drawn from ``rng``. Returns (records, residues)."""
+    aa = np.frombuffer(b"ACDEFGHIKLMNPQRSTVWY", np.uint8)
+    residues = 0
+    with open(path, "w") as f:
+        for i in range(TOOLS_PROTEINS):
+            seq = "M" + aa[rng.integers(0, 20, int(rng.integers(99, 600)))
+                           ].tobytes().decode()
+            residues += len(seq)
+            f.write(f">WP_{i}.1 protein {i}\n")
+            for j in range(0, len(seq), 60):
+                f.write(seq[j:j + 60] + "\n")
+    return TOOLS_PROTEINS, residues
+
+
+def fasta_counts(path: str) -> tuple:
+    """(records, residues) of a FASTA file."""
+    records = residues = 0
+    with open(path) as f:
+        for line in f:
+            if line.startswith(">"):
+                records += 1
+            else:
+                residues += len(line.strip())
+    return records, residues
+
+
+def tools_phase(args, times: dict, card: str, db: str, out: str) -> dict:
+    """The host tools users run on the card's output, through the port's
+    CLI: geneLevelAnalysis and filterWIMP on phase 4's mapDirectly ->
+    classify output, convertDB on its database, splitEggNog on a protein
+    FASTA, evaluateExternal on phase 11's full-database run, and the plots
+    where matplotlib is installed. Checks each output; returns each
+    subcommand's seconds and the counts checked."""
+    tdir = os.path.join(args.workdir, "tools")
+    os.makedirs(tdir, exist_ok=True)
+    rng = np.random.default_rng(args.seed + 12)
+    seconds: dict = {}
+
+    def run(name: str, argv: list) -> str:
+        """One CLI command, timed under ``name``; returns its stdout."""
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli_main(argv)
+        seconds[name] = time.perf_counter() - t0
+        printed = buf.getvalue()
+        log(f"{name}: {seconds[name]:.3f} s; " + " | ".join(
+            line.strip() for line in printed.splitlines()[-3:]))
+        if rc != 0:
+            raise AssertionError(f"{name} exited with {rc}")
+        return printed
+
+    info: dict = {"card": card}
+    with Phase("tools", times):
+        info["genes"] = write_annotations(db, rng)
+        printed = run("geneLevelAnalysis", ["geneLevelAnalysis", "--DB", db,
+                                            "--mappings", out])
+        n_with, n_without = (int(w) for w in printed.replace("(", " ").split()
+                             if w.isdigit())
+        n_em = sum(1 for _ in iter_reads_grouped(out + ".EM"))
+        with open(out + ".EM.geneLevelAnalysis") as f:
+            rows = [line.rstrip("\n").split("\t") for line in f][1:]
+        bad = [r for r in rows if int(r[4]) < 1 or not 0 <= float(r[5]) <= 1]
+        info["gene_level"] = dict(genes_hit=len(rows), reads_annotated=n_with,
+                                  reads_not_annotated=n_without, reads_em=n_em)
+        if not rows or bad:
+            raise AssertionError(f"geneLevelAnalysis: {len(rows)} rows, "
+                                 f"bad rows {bad[:3]}")
+        if n_with + n_without != n_em:
+            raise AssertionError(f"geneLevelAnalysis counted {n_with} + "
+                                 f"{n_without} reads, .EM holds {n_em}")
+
+        removed = {}
+        for thr in ("0.8", "0.999"):
+            printed = run(f"filterWIMP_{thr}", [
+                "filterWIMP", "--DB", db, "--mappings", out,
+                "--identityThreshold", thr])
+            removed[thr] = int(printed.rsplit("(", 1)[1].split()[0])
+            with open(out + ".EM.reads2Taxon.filteredByIdentity") as f:
+                kept = sum(1 for line in f
+                           if line.rstrip("\n").split("\t")[1] != "0")
+            if thr == "0.999" and kept:
+                raise AssertionError(f"filterWIMP 0.999 kept {kept} reads")
+        info["filterWIMP_units_removed"] = removed
+
+        contigs = [name for name, _ in read_sequences(os.path.join(db,
+                                                                   "DB.fa"))]
+        taxa = {extract_taxon_id(name) for name in contigs}
+        for target in ("kraken", "centrifuge", "mash"):
+            run(f"convertDB_{target}", [
+                "convertDB", "--DB", db, "--to", target, "--output",
+                os.path.join(tdir, target)])
+        with open(os.path.join(tdir, "kraken", "library",
+                               "metamaps.fna")) as f:
+            heads = [line for line in f if line.startswith(">")]
+        with open(os.path.join(tdir, "centrifuge", "seqid2taxid.map")) as f:
+            n_map = sum(1 for _ in f)
+        n_mash = len(os.listdir(os.path.join(tdir, "mash")))
+        info["convertDB"] = dict(contigs=len(contigs), taxa=len(taxa),
+                                 kraken_headers=len(heads),
+                                 seqid2taxid_lines=n_map, mash_files=n_mash)
+        if len(heads) != len(contigs) or not all("kraken:taxid|" in h
+                                                 for h in heads):
+            raise AssertionError("convertDB kraken: headers without their "
+                                 "taxon")
+        if n_map != len(contigs) or n_mash != len(taxa):
+            raise AssertionError(f"convertDB: {n_map} seqid2taxid lines for "
+                                 f"{len(contigs)} contigs, {n_mash} mash "
+                                 f"files for {len(taxa)} taxa")
+
+        prot = os.path.join(tdir, "proteins.faa")
+        want = write_proteins(prot, rng)
+        stand_in = os.path.join(tdir, "emapper_stand_in.py")
+        with open(stand_in, "w") as f:
+            f.write(FAKE_EMAPPER)
+        annot = os.path.join(tdir, "annot.txt")
+        eggnog = ["splitEggNog", "--input", prot, "--output", annot]
+        run("splitEggNog_split", eggnog + ["--action", "split",
+                                           "--targetChars",
+                                           str(TOOLS_TARGET_CHARS)])
+        run("splitEggNog_submit", eggnog + [
+            "--action", "submit", "--cmd",
+            f"{sys.executable} {stand_in} {{input}} {{output}}"])
+        chunks = sorted(
+            (n for n in os.listdir(tdir) if n.startswith("annot.txt.split.i.")),
+            key=lambda n: int(n.rsplit(".", 1)[1]))
+        t0 = time.perf_counter()
+        for n in chunks:
+            subprocess.run(["bash", os.path.join(
+                tdir, "annot.txt.split.submit." + n.rsplit(".", 1)[1])],
+                check=True, timeout=300)
+        seconds["splitEggNog_jobs"] = time.perf_counter() - t0
+        run("splitEggNog_collect", eggnog + ["--action", "collect"])
+        got = [fasta_counts(os.path.join(tdir, n)) for n in chunks]
+        got = tuple(sum(c) for c in zip(*got))
+        with open(annot) as f:
+            n_rows = sum(1 for _ in f) - 1
+        info["splitEggNog"] = dict(chunks=len(chunks), records=got[0],
+                                   residues=got[1], collected_rows=n_rows)
+        if len(chunks) < 2 or got != want or n_rows != want[0]:
+            raise AssertionError(f"splitEggNog: {len(chunks)} chunks hold "
+                                 f"{got}, the input {want}; {n_rows} rows")
+
+        root = os.path.join(args.workdir, "acc", "store", "acc")
+        run_out = os.path.join(root, "runs", "full__metamaps", "out")
+        truth = os.path.join(root, "reads.truth")
+        with open(truth) as f:
+            n_truth = sum(1 for line in f
+                          if line.rstrip("\n").split("\t")[1] not in ("", "0"))
+        evaluate = ["evaluateExternal", "--DB",
+                    os.path.join(args.workdir, "acc", "DB"), "--truth", truth,
+                    "--fastq", os.path.join(root, "reads.fastq"), "--method",
+                    f"metamaps={run_out}.EM.reads2Taxon:{run_out}.EM.WIMP"]
+        printed = run("evaluateExternal", evaluate + [
+            "--output", os.path.join(tdir, "eval")])
+        n_counted = int(printed.split()[0])
+        with open(os.path.join(tdir, "eval.readLevel.tsv")) as f:
+            acc = [float(line.rstrip("\n").split("\t")[8])
+                   for line in list(f)[1:]]
+        with open(os.path.join(tdir, "eval.distribution.tsv")) as f:
+            n_dist = sum(1 for _ in f) - 1
+        info["evaluateExternal"] = dict(
+            truth_reads=n_truth, reads_counted=n_counted, read_rows=len(acc),
+            distribution_rows=n_dist, accuracy_min=min(acc, default=None))
+        if n_counted != n_truth or not acc or n_dist < 1 or not all(
+                0 <= a <= 1 for a in acc):
+            raise AssertionError("evaluateExternal: "
+                                 + json.dumps(info["evaluateExternal"]))
+
+        if importlib.util.find_spec("matplotlib") is None:
+            info["plots"] = "not run: matplotlib is not installed"
+            log("plots not run: matplotlib is not installed on this machine "
+                "(plotIdentities, evaluateExternal --plots)")
+        else:
+            run("plotIdentities", ["plotIdentities", "--mappings", out,
+                                   "--output",
+                                   os.path.join(tdir, "identities.pdf")])
+            run("evaluateExternal_plots", evaluate + [
+                "--output", os.path.join(tdir, "plots"), "--plots"])
+            info["plots"] = sorted(n for n in os.listdir(tdir)
+                                   if n.endswith(".pdf"))
+        pdfs = [n for n in os.listdir(tdir) if n.endswith(".pdf")]
+        if isinstance(info["plots"], str) == bool(pdfs):
+            raise AssertionError(f"PDFs {pdfs}: {info['plots']}")
+        info["seconds"] = seconds
+        log(f"tools ({card}): " + json.dumps(info))
+    return info
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--genera", type=int, default=12)
@@ -1528,7 +1782,10 @@ def main(argv=None) -> int:
                     launches_long_read_pi75=pi75[wide_name],
                     launches_mesh_cli=cli_wide, launches_experiments=acc_wide)
 
-    # ---- 12. summary ------------------------------------------------------
+    # ---- 12. the host tools on the card's outputs --------------------------
+    tools = tools_phase(args, times, card, db, out)
+
+    # ---- 13. summary ------------------------------------------------------
     map_s = engine_stats["map_s"]
     summary = {
         "reads": len(reads), "reads_mappable": mappable,
@@ -1545,7 +1802,7 @@ def main(argv=None) -> int:
         "mapping_phase_s": breakdown, "sweep_bench_ms": scenario_ms,
         "sm_clock_max_mhz": clock_mhz, "map_against_index": mai,
         "long_read": long_info, "mesh": mesh, "experiments": acc,
-        "card": card,
+        "tools": tools, "card": card,
     }
     log("summary " + json.dumps(summary))
     shutil.rmtree(args.workdir, ignore_errors=True)

@@ -19,8 +19,12 @@ chunk, as in the JAX package), ``shortenContigIDs``,
 ``compareMappings`` and ``benchmarkInference``; ``simulate --action
 inference`` and ``experiments`` map with ``--engine`` (``torch`` or
 ``oracle``) and run the EM on ``--device``, and raise without CUDA unless
-``--device cpu`` is given. The seven subcommands in ``NOT_PORTED`` print
-"not ported yet" and return 2.
+``--device cpu`` is given. The host tools that read classify's output or
+export the database run through the port too: ``geneLevelAnalysis``,
+``filterWIMP``, ``convertDB``, ``splitEggNog``, ``evaluateExternal``
+(``--plots``: the paper figure set), ``plotIdentities`` and
+``downloadRefSeq``. Every subcommand and option of the JAX package's CLI is
+here, with its defaults.
 
     python -m metamaps_tpu_torch mapDirectly --reference DB/DB.fa \\
         --query reads.fastq --output out --all
@@ -49,11 +53,6 @@ from .engine.em import EM_BACKENDS, do_em
 from .engine.mapwrap import ENGINES
 from .io.fasta import total_file_size
 from .params import Parameters
-
-NOT_PORTED = (
-    "splitEggNog", "geneLevelAnalysis", "filterWIMP", "convertDB",
-    "evaluateExternal", "plotIdentities", "downloadRefSeq",
-)
 
 #: the reference's five subcommands; every other one is a database or
 #: simulation tool (:func:`_run_tool`)
@@ -185,9 +184,9 @@ def _parser() -> argparse.ArgumentParser:
 
 
 def _add_tool_parsers(sub) -> None:
-    """The database and simulation subcommands, with the JAX package's
-    arguments (``metamaps_tpu/cli.py:134-267``); ``experiments`` and
-    ``simulate`` take the port's ``--engine`` and ``--device``."""
+    """The database, simulation and analysis subcommands, with the JAX
+    package's arguments (``metamaps_tpu/cli.py:134-330``); ``experiments``
+    and ``simulate`` take the port's ``--engine`` and ``--device``."""
     p_ex = sub.add_parser(
         "experiments",
         help="run a full simulation experiment matrix: reads x DB variants "
@@ -276,6 +275,13 @@ def _add_tool_parsers(sub) -> None:
     p_sc.add_argument("--output", required=True)
     p_sc.add_argument("--mapping", required=True)
 
+    p_eg = sub.add_parser("splitEggNog", help="split a protein FASTA for annotation jobs / collect annotations")
+    p_eg.add_argument("--action", choices=["split", "submit", "collect"], required=True)
+    p_eg.add_argument("--input", required=True, help="protein FASTA (split) / ignored otherwise")
+    p_eg.add_argument("--output", required=True, help="output prefix; collect writes the merged table here")
+    p_eg.add_argument("--targetChars", type=int, default=None)
+    p_eg.add_argument("--cmd", default=None, help="annotation command template with {input}/{output}")
+
     p_at = sub.add_parser("addTaxonIDToFasta", help="append kraken:taxid|<id>| to every contig ID")
     p_at.add_argument("--input", required=True)
     p_at.add_argument("--output", required=True)
@@ -315,6 +321,20 @@ def _add_tool_parsers(sub) -> None:
                       "(reference default 2000, "
                       "estimateSelfSimilarity.pl:36-43)")
 
+    p_gla = sub.add_parser("geneLevelAnalysis", help="functional profile from best mappings x gene annotations")
+    p_gla.add_argument("--DB", required=True)
+    p_gla.add_argument("--mappings", required=True)
+
+    p_fw = sub.add_parser("filterWIMP", help="drop WIMP entries with low median identity")
+    p_fw.add_argument("--DB", required=True)
+    p_fw.add_argument("--mappings", required=True)
+    p_fw.add_argument("--identityThreshold", type=float, default=0.8)
+
+    p_cv = sub.add_parser("convertDB", help="export DB for kraken/centrifuge/mash")
+    p_cv.add_argument("--DB", required=True)
+    p_cv.add_argument("--to", choices=["kraken", "centrifuge", "mash"], required=True)
+    p_cv.add_argument("--output", required=True)
+
     p_cmp = sub.add_parser("compareMappings", help="diff two mappings files")
     p_cmp.add_argument("fileA")
     p_cmp.add_argument("fileB")
@@ -323,6 +343,46 @@ def _add_tool_parsers(sub) -> None:
     p_bi = sub.add_parser("benchmarkInference", help="per-read accuracy vs a truth table")
     p_bi.add_argument("--mappings", required=True)
     p_bi.add_argument("--truth", required=True)
+
+    p_ee = sub.add_parser(
+        "evaluateExternal",
+        help="score one or more methods' results on a real dataset "
+        "against a per-read truth (evaluateExternalDatasets.pl)",
+    )
+    p_ee.add_argument("--DB", required=True)
+    p_ee.add_argument("--truth", required=True,
+                      help="per-read truth: readID<TAB>taxonID")
+    p_ee.add_argument("--fastq", default=None)
+    p_ee.add_argument("--method", action="append", required=True,
+                      metavar="NAME=r2t[:dist]",
+                      help="results files per method; repeatable")
+    p_ee.add_argument("--output", required=True, help="output table prefix")
+    p_ee.add_argument("--plots", action="store_true",
+                      help="also produce the paperPlots figure set "
+                      "(readsPanel/readAccuracy/abundanceXY/composition/"
+                      "unknownFrequency PDFs)")
+    p_ee.add_argument("--plotLevel", default="species")
+
+    p_pl = sub.add_parser("plotIdentities", help="per-genome identity/coverage panels (PDF)")
+    p_pl.add_argument("--mappings", required=True)
+    p_pl.add_argument("--output", default=None)
+
+    p_dl = sub.add_parser(
+        "downloadRefSeq",
+        help="download RefSeq genomes + taxonomy (or produce a manifest)",
+    )
+    p_dl.add_argument("--targetDir", required=True)
+    p_dl.add_argument("--branches", default=None, help="comma-separated refseq branches")
+    p_dl.add_argument("--fetch", action="store_true",
+                      help="actually download (default: write a manifest only)")
+    p_dl.add_argument("--taxonomyDir", default=None,
+                      help="with --fetch: download + extract taxdump here")
+    p_dl.add_argument("--skipIncompleteGenomes", action="store_true",
+                      help="keep only 'Complete Genome' assemblies")
+    p_dl.add_argument("--maxAssemblies", type=int, default=None)
+    p_dl.add_argument("--baseUrl", default=None,
+                      help="mirror root (default https://ftp.ncbi.nlm.nih.gov)")
+    p_dl.add_argument("--DB", default="refseq", choices=["refseq", "genbank"])
 
 
 def _add_engine_args(p: argparse.ArgumentParser) -> None:
@@ -334,10 +394,35 @@ def _add_engine_args(p: argparse.ArgumentParser) -> None:
 
 
 def _run_tool(args, engine_stats: dict = None) -> int:
-    """One database or simulation subcommand, as the JAX package's CLI runs
-    it (``metamaps_tpu/cli.py:444-691``). ``engine_stats`` is
-    ``run_experiment``'s ``run_stats`` for ``experiments``, and
-    ``run_inference``'s ``stats`` for ``simulate --action inference``."""
+    """One database, simulation or analysis subcommand, as the JAX
+    package's CLI runs it (``metamaps_tpu/cli.py:337-691``).
+    ``engine_stats`` is ``run_experiment``'s ``run_stats`` for
+    ``experiments``, and ``run_inference``'s ``stats`` for ``simulate
+    --action inference``."""
+    if args.command == "geneLevelAnalysis":
+        from .tools.gene_level import gene_level_analysis
+
+        out, n_with, n_without = gene_level_analysis(args.DB, args.mappings)
+        print(f"{out} ({n_with} reads on annotated contigs, {n_without} without)")
+        return 0
+
+    if args.command == "filterWIMP":
+        from .tools.wimp_filter import filter_low_identity
+
+        out_wimp, out_r2t, removed = filter_low_identity(
+            args.DB, args.mappings, args.identityThreshold
+        )
+        print(f"{out_wimp} ({len(removed)} mapping units removed)")
+        return 0
+
+    if args.command == "convertDB":
+        from .tools import convert
+
+        fn = {"kraken": convert.to_kraken, "centrifuge": convert.to_centrifuge,
+              "mash": convert.to_mash}[args.to]
+        print(fn(args.DB, args.output))
+        return 0
+
     if args.command == "compareMappings":
         from .tools.compare import compare_mappings
 
@@ -353,6 +438,72 @@ def _run_tool(args, engine_stats: dict = None) -> int:
         from .tools.compare import benchmark_inference
 
         print(benchmark_inference(args.mappings, args.truth))
+        return 0
+
+    if args.command == "plotIdentities":
+        from .tools.plots import plot_identities_em
+
+        print(plot_identities_em(args.mappings, args.output))
+        return 0
+
+    if args.command == "evaluateExternal":
+        from .sim.external_eval import evaluate_external, parse_method_spec
+
+        methods = dict(parse_method_spec(s) for s in args.method)
+        result = evaluate_external(
+            args.DB, args.truth, methods, fastq=args.fastq,
+            out_prefix=args.output,
+        )
+        m = result["meta"]
+        print(
+            f"{m['n_truth_reads']} truth reads "
+            f"({m['n_truth_taxa_changed_by_projection']} projected to "
+            f"DB-mappable ancestors); wrote {args.output}.readLevel.tsv, "
+            f"{args.output}.distribution.tsv"
+        )
+        if args.plots:
+            from .sim.external_eval import read_lengths_from_fastx
+            from .sim.validation import parse_wimp
+            from .tools.paper_plots import paper_plot_suite
+
+            dists = {
+                name: parse_wimp(mf.distribution)
+                for name, mf in methods.items() if mf.distribution
+            }
+            lens = (
+                {"reads": list(read_lengths_from_fastx(args.fastq).values())}
+                if args.fastq else None
+            )
+            for fn in paper_plot_suite(
+                result, result["truth_distribution"], dists, args.output,
+                read_lengths=lens, level=args.plotLevel,
+            ):
+                print(fn)
+        return 0
+
+    if args.command == "downloadRefSeq":
+        from .db.download import NCBI_FTP, fetch, make_plan, write_manifest
+
+        branches = args.branches.split(",") if args.branches else None
+        plan = make_plan(args.targetDir, branches, section=args.DB,
+                         base_url=args.baseUrl or NCBI_FTP)
+        if args.fetch:
+            levels = (
+                ("Complete Genome",) if args.skipIncompleteGenomes
+                else ("Complete Genome", "Chromosome")
+            )
+            res = fetch(
+                plan, assembly_levels=levels,
+                taxonomy_dir=args.taxonomyDir,
+                max_assemblies=args.maxAssemblies, progress=True,
+            )
+            print(
+                f"downloaded {res.assemblies_downloaded} assemblies "
+                f"({res.assemblies_skipped} already local, "
+                f"{len(res.failures)} failures -> {res.report_path})"
+            )
+            return 0 if not res.failures else 1
+        print(write_manifest(plan, args.targetDir.rstrip("/") + ".manifest"))
         return 0
 
     if args.command == "synthDB":
@@ -515,6 +666,21 @@ def _run_tool(args, engine_stats: dict = None) -> int:
         shorten_contig_ids(args.input, args.output, args.mapping)
         return 0
 
+    if args.command == "splitEggNog":
+        from .tools import eggnog
+
+        if args.action == "split":
+            kw = {"target_chars": args.targetChars} if args.targetChars else {}
+            n = eggnog.split_fasta(args.input, args.output, **kw)
+            print(f"Done. Produced {n} files.")
+        elif args.action == "submit":
+            kw = {"cmd_template": args.cmd} if args.cmd else {}
+            scripts = eggnog.write_submit_scripts(args.output, **kw)
+            print(f"{len(scripts)} job scripts written; execute them to annotate.")
+        else:
+            print(eggnog.collect(args.output))
+        return 0
+
     if args.command == "addTaxonIDToFasta":
         from .tools.misc import add_taxon_id_to_fasta
 
@@ -596,12 +762,6 @@ def main(argv=None, engine_stats: dict = None) -> int:
     seconds spent on the minimum-hits table; for mapAgainstIndex also each
     shard's load seconds); for ``experiments`` it gets where the time went
     (``sim.experiments.run_experiment``'s ``run_stats``)."""
-    argv = list(sys.argv[1:] if argv is None else argv)
-    if argv and argv[0] in NOT_PORTED:
-        print(f"metamaps_tpu_torch: {argv[0]} is not ported yet",
-              file=sys.stderr)
-        return 2
-
     args = _parser().parse_args(argv)
     if args.command not in CORE_COMMANDS:
         return _run_tool(args, engine_stats)

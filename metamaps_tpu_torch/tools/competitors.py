@@ -6,11 +6,9 @@ converters translate their per-read classifications into the two-column
 reads2Taxon format our evaluation harness consumes
 (create_compatible_reads_file_from_* — SimulationsKraken.pm:1208-1420).
 
-Counterpart: ``metamaps_tpu/tools/competitors.py``, copied so that the
-port imports nothing of the JAX package, without the three competitor
-database builders (``build_kraken2_db``, ``build_centrifuge_index``,
-``build_kraken1_db``): they convert the database through
-``tools/convert.py`` (``convertDB``), which the port does not have yet.
+Counterpart: ``metamaps_tpu/tools/competitors.py``, copied unchanged so
+that the port imports nothing of the JAX package. The database builders
+convert through the port's ``tools/convert.py``.
 """
 from __future__ import annotations
 
@@ -105,6 +103,58 @@ def centrifuge_reads_to_reads2taxon(centrifuge_reads: str, output_fn: str,
             else:
                 out.write(f"{read_id}\t{taxon}\n")
     return output_fn
+
+
+# --- competitor DB builds (callKraken*OnConvertedDB.pl analogs) --------------
+
+
+def build_kraken2_db(metamaps_db: str, out_dir: str,
+                     kmer_len: int = 35, threads: int = 4):
+    """Convert a MetaMaps DB and drive kraken2-build
+    (convertMetaMapsToKraken.pl + callKraken2OnConvertedDB.pl:1-46 +
+    SimulationsKraken.pm doKraken2)."""
+    from .convert import to_kraken
+
+    build = _require("kraken2-build")
+    os.makedirs(out_dir, exist_ok=True)
+    conv = os.path.join(out_dir, "_converted")
+    to_kraken(metamaps_db, conv)
+    tax_dir = os.path.join(out_dir, "taxonomy")
+    os.makedirs(tax_dir, exist_ok=True)
+    for dmp in ("names.dmp", "nodes.dmp", "merged.dmp"):
+        src = os.path.join(metamaps_db, "taxonomy", dmp)
+        if os.path.exists(src):
+            shutil.copy(src, tax_dir)
+    subprocess.run(
+        [build, "--db", out_dir, "--add-to-library",
+         os.path.join(conv, "DB.fa")], check=True,
+    )
+    subprocess.run(
+        [build, "--db", out_dir, "--build", "--kmer-len", str(kmer_len),
+         "--threads", str(threads)], check=True,
+    )
+    return out_dir
+
+
+def build_centrifuge_index(metamaps_db: str, out_dir: str, threads: int = 4):
+    """Convert a MetaMaps DB and drive centrifuge-build
+    (convertMetaMapsToCentrifuge.pl + callCentrifugeOnConvertedDB.pl;
+    SimulationsKraken.pm:128)."""
+    from .convert import to_centrifuge
+
+    build = _require("centrifuge-build")
+    os.makedirs(out_dir, exist_ok=True)
+    conv = os.path.join(out_dir, "_converted")
+    to_centrifuge(metamaps_db, conv)
+    prefix = os.path.join(out_dir, "DB")
+    subprocess.run(
+        [build, "-p", str(threads),
+         "--conversion-table", os.path.join(conv, "conversion.tsv"),
+         "--taxonomy-tree", os.path.join(metamaps_db, "taxonomy", "nodes.dmp"),
+         "--name-table", os.path.join(metamaps_db, "taxonomy", "names.dmp"),
+         os.path.join(conv, "DB.fa"), prefix], check=True,
+    )
+    return prefix
 
 
 # --- kraken2 with report + Bracken (SimulationsKraken.pm:220-335) ------------
@@ -350,7 +400,36 @@ def megan_reads_to_reads2taxon(megan_reads: str, output_fn: str,
 
 
 # --- classic Kraken-1 (SimulationsKraken.pm doKraken:598-631,
-# doKrakenOnExistingDB:336-404) -----------------------------------------------
+# translateMetaMapToKraken:199-290, doKrakenOnExistingDB:336-404) -------------
+
+
+def build_kraken1_db(metamaps_db: str, out_dir: str, threads: int = 4):
+    """Convert a MetaMaps DB and drive classic kraken-build
+    (translateMetaMapToKraken, SimulationsKraken.pm:199-290): taxonomy dmp
+    files + DB.fa library -> kraken-build --build. The resulting DB/ dir
+    is what run_kraken1 consumes."""
+    from .convert import to_kraken
+
+    build = _require("kraken-build")
+    os.makedirs(out_dir, exist_ok=True)
+    conv = os.path.join(out_dir, "_converted")
+    to_kraken(metamaps_db, conv)
+    db = os.path.join(out_dir, "DB")
+    tax_dir = os.path.join(db, "taxonomy")
+    os.makedirs(tax_dir, exist_ok=True)
+    for dmp in ("names.dmp", "nodes.dmp", "merged.dmp"):
+        src = os.path.join(metamaps_db, "taxonomy", dmp)
+        if os.path.exists(src):
+            shutil.copy(src, tax_dir)
+    subprocess.run(
+        [build, "--db", db, "--add-to-library",
+         os.path.join(conv, "DB.fa")], check=True,
+    )
+    subprocess.run(
+        [build, "--db", db, "--build", "--threads", str(threads)],
+        check=True,
+    )
+    return db
 
 
 def run_kraken1(db_dir: str, reads: str, out_prefix: str, threads: int = 4):

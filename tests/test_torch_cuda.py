@@ -590,3 +590,44 @@ def test_experiments_on_the_card_writes_the_cpu_store(cuda, tmp_path):
     assert sorted(trees["cuda"]) == sorted(trees["cpu"])
     for name, want in trees["cpu"].items():
         assert trees["cuda"][name] == want, name
+
+
+def test_tools_chain_on_the_card_writes_the_cpu_bytes(cuda, tmp_path):
+    """``mapDirectly`` -> ``classify`` -> ``geneLevelAnalysis`` ->
+    ``filterWIMP`` -> ``convertDB --to kraken`` through the port's CLI on
+    the gene-level fixture of ``tests/test_torch_tools.py``: with ``--device
+    cuda`` (the torch engine through the batch sweep kernel, the EM rounds
+    on the card) every file is the one the same chain writes with
+    ``--device cpu``."""
+    from metamaps_tpu_torch.cli import main as port_cli_main
+
+    from util_db import make_mini_db, write_reads_fastq
+    from util_torch import assert_same_trees, run_in, write_gene_annotations
+
+    base = str(tmp_path / "base")
+    rng = np.random.default_rng(909)
+    genomes, contigs, _ = make_mini_db(os.path.join(base, "DB"), rng,
+                                       n_genomes=2, genome_len=30000)
+    write_gene_annotations(os.path.join(base, "DB"), contigs[0], 30000)
+    write_reads_fastq(os.path.join(base, "reads.fastq"),
+                      sample_reads(rng, genomes, 24, min_len=2500,
+                                   max_len=5000, sub=0.05))
+    for device in ("cpu", "cuda"):
+        d = str(tmp_path / device)
+        shutil.copytree(base, d)
+        before = l2_event_sweep_batch.launches
+        for argv in (
+                ["mapDirectly", "--reference", "DB/DB.fa", "--query",
+                 "reads.fastq", "--output", "out", "--all", "--minReadLen",
+                 "2000", "--device", device],
+                ["classify", "--DB", "DB", "--mappings", "out", "--device",
+                 device],
+                ["geneLevelAnalysis", "--DB", "DB", "--mappings", "out"],
+                ["filterWIMP", "--DB", "DB", "--mappings", "out"],
+                ["convertDB", "--DB", "DB", "--to", "kraken", "--output",
+                 "kr"]):
+            assert run_in(d, port_cli_main, argv) == 0, (device, argv[0])
+        torch.cuda.synchronize()
+        assert (l2_event_sweep_batch.launches > before) == (device == "cuda")
+    assert os.path.getsize(str(tmp_path / "cuda" / "out.EM.geneLevelAnalysis"))
+    assert_same_trees(str(tmp_path / "cpu"), str(tmp_path / "cuda"))

@@ -144,25 +144,79 @@ def test_classify_raises_without_cuda(mini, tmp_path):
     assert not os.path.exists(got + ".EM")
 
 
-def test_unported_subcommands_refuse(capsys):
-    """The seven subcommands the port lacks refuse; the five core ones and
-    the sixteen database and simulation tools are ported."""
-    from metamaps_tpu_torch.cli import NOT_PORTED
+#: the port's own device and engine options: ``--device`` (cuda or cpu)
+#: is the port's alone, and the engine and EM backend options name the
+#: torch engine and rounds where the JAX package's name ``jax``
+PORT_DEVICE_OPTIONS = ("--device", "--engine", "--mapping-engine",
+                       "--emBackend")
 
-    assert port_cli_main(["convertDB", "--DB", "x"]) == 2
-    assert port_cli_main(["downloadRefSeq"]) == 2
-    assert "not ported yet" in capsys.readouterr().err
-    assert sorted(NOT_PORTED) == sorted([
-        "splitEggNog", "geneLevelAnalysis", "filterWIMP", "convertDB",
-        "evaluateExternal", "plotIdentities", "downloadRefSeq"])
-    for name in ("index", "mapDirectly", "mapAgainstIndex", "classify",
-                 "classifyU", "experiments", "synthDB", "simulate",
-                 "buildTruth", "truthDataset", "extractReads",
-                 "firstQuartileScore", "shortenContigIDs",
-                 "addTaxonIDToFasta", "buildDB", "annotate", "validateDB",
-                 "DBinfo", "selfSimilarity", "compareMappings",
-                 "benchmarkInference"):
-        assert name not in NOT_PORTED
+
+def _jax_parser():
+    """The JAX package's parser: ``metamaps_tpu.cli.main`` builds it and
+    parses at once, so the parse is intercepted."""
+    import argparse
+
+    from metamaps_tpu import cli as jax_cli
+
+    class Built(Exception):
+        pass
+
+    def grab(parser, *args, **kwargs):
+        raise Built(parser)
+
+    parse = argparse.ArgumentParser.parse_args
+    argparse.ArgumentParser.parse_args = grab
+    try:
+        jax_cli.main(["index"])
+    except Built as e:
+        return e.args[0]
+    finally:
+        argparse.ArgumentParser.parse_args = parse
+    raise AssertionError("the JAX CLI parsed nothing")
+
+
+def _options(parser) -> dict:
+    """{subcommand: {option strings (or a positional's dest): (default,
+    choices, required, action, metavar, nargs, type, dest)}}."""
+    import argparse
+
+    sub = next(a for a in parser._actions
+               if isinstance(a, argparse._SubParsersAction))
+    out = {}
+    for name, p in sub.choices.items():
+        out[name] = {
+            tuple(a.option_strings) or a.dest: (
+                a.default, None if a.choices is None else list(a.choices),
+                a.required, type(a).__name__, a.metavar, a.nargs, a.type,
+                a.dest)
+            for a in p._actions if not isinstance(a, argparse._HelpAction)}
+    return out
+
+
+def test_every_jax_subcommand_is_ported():
+    """The port's parser has every subcommand of the JAX package's, and no
+    other; each with the same option strings, defaults, choices, required,
+    action, metavar, nargs, type and dest. Only the port's device and
+    engine options (``PORT_DEVICE_OPTIONS``) may differ or be the port's
+    alone, and they keep every JAX choice that names no JAX backend."""
+    from metamaps_tpu_torch.cli import _parser
+
+    want, got = _options(_jax_parser()), _options(_parser())
+    assert sorted(got) == sorted(want)
+    assert len(want) == 28
+    for name in want:
+        for key in sorted(set(want[name]) | set(got[name]), key=str):
+            if key in [(o,) for o in PORT_DEVICE_OPTIONS]:
+                assert key in got[name], (name, key)
+                if key in want[name]:
+                    kept = set(want[name][key][1]) - {"jax", "auto"}
+                    assert kept <= set(got[name][key][1]), (name, key)
+                continue
+            assert got[name].get(key) == want[name].get(key), (name, key)
+    # the device option is on every subcommand that runs the card
+    for name in ("mapDirectly", "mapAgainstIndex", "classify", "experiments",
+                 "simulate"):
+        assert got[name][("--device",)][:2] == ("cuda", ["cuda", "cpu"])
 
 
 def test_em_bench_round_matches_jax_on_cpu():

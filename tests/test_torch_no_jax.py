@@ -3,9 +3,12 @@
 module and ``chip_smoke.py`` import, and ``mapDirectly`` + ``classify``,
 ``mapDirectly --mesh`` + ``classify --emBackend sharded``, then ``index``
 -> ``mapAgainstIndex`` -> ``classify`` -> ``classifyU``, run through the
-port's CLI on a tiny database (torch engine and EM rounds on the CPU);
-then ``synthDB`` -> ``experiments`` and ``annotate`` -> ``buildDB`` ->
-``validateDB``."""
+port's CLI on a tiny database (torch engine and EM rounds on the CPU), with
+``geneLevelAnalysis``, ``filterWIMP``, ``convertDB`` (all three targets),
+``splitEggNog`` (split, submit, collect), ``evaluateExternal --plots``,
+``plotIdentities`` and ``downloadRefSeq`` (its manifest) on the first
+``classify``'s output; then ``synthDB`` -> ``experiments`` and
+``annotate`` -> ``buildDB`` -> ``validateDB``."""
 import os
 import subprocess
 import sys
@@ -42,13 +45,14 @@ SCRIPT = textwrap.dedent(
     sys.path.insert(0, os.path.join(sys.argv[1], "tests"))
     from util_db import make_mini_db, write_reads_fastq
     from util_sim import random_genome, sample_reads
+    from util_torch import write_gene_annotations
     from metamaps_tpu_torch.cli import main
     from metamaps_tpu_torch.io.mappings import read_meta
 
     root = sys.argv[2]
     db = os.path.join(root, "DB")
     rng = np.random.default_rng(7)
-    genomes, _, _ = make_mini_db(db, rng, n_genomes=2, genome_len=30000)
+    genomes, contigs, _ = make_mini_db(db, rng, n_genomes=2, genome_len=30000)
     reads = sample_reads(rng, genomes, 6, min_len=2000, max_len=4000, sub=0.05)
     reads.append((random_genome(rng, 500), -1, 0, 1))
     fq = os.path.join(root, "reads.fastq")
@@ -66,6 +70,40 @@ SCRIPT = textwrap.dedent(
     assert meta["ReadsMapped"] == 6, meta
     assert stats["l2_candidates"] > 0 and stats["oracle_fallbacks"] == 0, stats
     assert os.path.getsize(out + ".EM.WIMP") > 0
+
+    write_gene_annotations(db, contigs[0], 30000)
+    assert main(["geneLevelAnalysis", "--DB", db, "--mappings", out]) == 0
+    assert os.path.getsize(out + ".EM.geneLevelAnalysis") > 0
+    assert main(["filterWIMP", "--DB", db, "--mappings", out]) == 0
+    assert os.path.getsize(out + ".EM.WIMP.filteredByIdentity") > 0
+    for target in ("kraken", "centrifuge", "mash"):
+        assert main(["convertDB", "--DB", db, "--to", target, "--output",
+                     os.path.join(root, "conv_" + target)]) == 0
+    prot = os.path.join(root, "prot.faa")
+    with open(prot, "w") as f:
+        for i in range(4):
+            f.write(f">WP_{i}.1\\n" + "M" * 40 + "\\n")
+    annot = os.path.join(root, "annot.txt")
+    for action in ("split", "submit"):
+        assert main(["splitEggNog", "--action", action, "--input", prot,
+                     "--output", annot, "--targetChars", "50"]) == 0
+    n_chunks = 0
+    while os.path.exists(f"{annot}.split.i.{n_chunks + 1}"):
+        n_chunks += 1
+        with open(f"{annot}.split.o.{n_chunks}.emapper.annotations", "w") as f:
+            f.write("#\\n#\\n#\\n#query_name\\tGO_terms\\tKEGG_KOs\\t"
+                    "BiGG_reactions\\tOGs\\tCOG cat\\n")
+    assert n_chunks == 2  # two 49-character records a chunk
+    assert main(["splitEggNog", "--action", "collect", "--input", prot,
+                 "--output", annot]) == 0
+    assert main(["evaluateExternal", "--DB", db, "--truth",
+                 out + ".EM.reads2Taxon", "--fastq", fq, "--method",
+                 f"metamaps={out}.EM.reads2Taxon:{out}.EM.WIMP", "--output",
+                 os.path.join(root, "eval"), "--plots"]) == 0
+    assert os.path.getsize(os.path.join(root, "eval.readLevel.tsv")) > 0
+    assert main(["plotIdentities", "--mappings", out]) == 0
+    assert main(["downloadRefSeq", "--targetDir",
+                 os.path.join(root, "dl")]) == 0
     out_mesh = os.path.join(root, "out_mesh")
     assert main(["mapDirectly", "--reference", os.path.join(db, "DB.fa"),
                  "--query", fq, "--output", out_mesh, "--all", "--minReadLen",

@@ -1,5 +1,7 @@
 """A fixture and a helper shared by the port's CPU tests
 (``tests/test_torch_*.py``)."""
+import contextlib
+import io
 import os
 
 import pytest
@@ -48,3 +50,38 @@ def run_in(cwd: str, main, argv, **kwargs) -> int:
         return main(argv, **kwargs)
     finally:
         os.chdir(here)
+
+
+def run_printed(cwd: str, main, argv) -> tuple:
+    """(exit code, stdout) of ``main(argv)`` run from ``cwd``."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = run_in(cwd, main, argv)
+    return rc, buf.getvalue()
+
+
+def assert_same_trees(want_dir: str, got_dir: str) -> None:
+    """Every file under ``got_dir`` is the one under ``want_dir`` at the
+    same relative path, byte for byte, and neither has more (PDFs too)."""
+    want, got = tree_bytes(want_dir, skip=()), tree_bytes(got_dir, skip=())
+    assert want and sorted(got) == sorted(want)
+    for path in want:
+        assert got[path] == want[path], path
+
+
+def write_gene_annotations(db: str, contig: str, genome_len: int,
+                           step: int = 5000) -> None:
+    """A ``DB_annotations.txt`` with a 3 kb gene every ``step`` bases of
+    ``contig``, and a headerless ``DB_proteins.faa.annotated`` giving each
+    gene's protein an eggNOG class: the layout of the gene-level fixture of
+    ``tests/test_tools.py``."""
+    with open(os.path.join(db, "DB_annotations.txt"), "w") as f:
+        f.write("ContigId\tStart\tStop\tGeneName\tGeneLocusTag\t"
+                "CDSProteinId\tCDSProduct\n")
+        for i in range(0, genome_len, step):
+            g = i // step
+            f.write(f"{contig}\t{i}\t{i + 2999}\tgene{g}\tLT{g}\tWP_{g}\t"
+                    f"product {g}\n")
+    with open(os.path.join(db, "DB_proteins.faa.annotated"), "w") as f:
+        for g in range(-(-genome_len // step)):
+            f.write(f"WP_{g}\teggNOG\tCOG{g % 3}\n")
