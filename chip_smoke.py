@@ -77,7 +77,7 @@ Phases (each prints its wall seconds; any failure exits non-zero):
    the whole index, for the time within this call and phase 4's bytes);
    checks: the batch sweep kernel ran,
    oracle fallbacks <= 1% of mappable reads, >= 90% of reads mapped, .meta
-   adds up, a 64-read sample gives byte-identical mapping and .meta files
+   adds up, a 32-read sample gives byte-identical mapping and .meta files
    with the serial oracle over the same four partitions (the shard loop's
    writer with its oracle engine per partition, then unify; eight worker
    processes, one per partition and half-sample), device
@@ -121,9 +121,28 @@ Phases (each prints its wall seconds; any failure exits non-zero):
    hold the input's records and residues, one collected row per protein,
    the reads counted are the truth's and every accuracy lies in [0, 1];
    each subcommand's seconds;
-13. summary: reads/s of every mapping path, classify seconds, peak device
-   memory, the tools' seconds, then the card line, the kernel JSON line
-   and the final JSON line.
+13. at_scale: the repo's 1 Gbp run through the port's bench
+   (``metamaps_tpu_torch/profiling/bench.py``): the structured database
+   (seed 20260820, 1 Gbp) winnowed, finalized and stored as an index
+   under the work directory, the shard's tables uploaded, and its 16,384
+   reads mapped with the bench's engine (hit capacity 16,384): two warm
+   passes on 256 reads, one on all, three timed; one pass more at each
+   bucket's own hit capacity (its fallbacks recorded); the union with
+   mapping qualities; the EM round at 1M synthetic lines and on the union
+   tiled to 5M lines, each against the host round; ``mapAgainstIndex``
+   through the CLI on the first 2048 reads of the stored index (the
+   index's one restore). Checks: the batch kernel ran, oracle fallbacks
+   <= 1%, >= 90% of reads mapped, both capacities give the same
+   mappings, the CLI's lines equal the bench's union for those reads, the
+   EM rounds agree with the host's, the batch kernel equals its plain
+   version bit for bit on the first 1 Gbp slab (its time and bound on
+   every slab of that chunk), and a 64-read sample gives the serial
+   oracle's lines (worker processes forked after every timed step, which
+   share the shard); for the record, each mapping phase's seconds in a
+   fresh engine that synchronises after each;
+14. summary: reads/s of every mapping path, classify seconds, peak device
+   memory, the tools' seconds, the 1 Gbp run's numbers, then the card
+   line, the kernel JSON line and the final JSON line.
 """
 from __future__ import annotations
 
@@ -166,7 +185,8 @@ from metamaps_tpu_torch.engine.mapwrap import (map_query_file_against_shard,
 from metamaps_tpu_torch.parallel.sharded_engine import (ShardedMapperEngine,
                                                         map_query_file_sharded)
 from metamaps_tpu_torch.params import Parameters
-from metamaps_tpu_torch.profiling import em_bench, sweep_bench
+from metamaps_tpu_torch.profiling import bench, em_bench, sweep_bench
+from metamaps_tpu_torch.profiling.bench import write_fastq
 from metamaps_tpu_torch.profiling.sweep_ab import LONG_READ, LONG_READ_ARGS
 from metamaps_tpu_torch.sim.synth_db import ont_read, write_synth_db_dir
 from metamaps_tpu_torch.taxonomy import extract_taxon_id
@@ -204,6 +224,8 @@ MESH = (4, 2)  # shard, data: eight ranks on the one card
 MESH_ROWS = 512
 MESH_ORACLE_WORKERS = 2  # worker processes per partition for the sample,
 # each mapping its share of the sample's reads
+# the mesh's oracle sample: half the others', to leave phase 13 its time
+MESH_SAMPLE = 32
 EM_SHARDED_RANKS = 4
 # phase 11: ACCURACY.json's command at its full size (its "db" builder and
 # "command"), through the port's CLI on the card
@@ -246,8 +268,14 @@ with open(out + ".emapper.annotations", "w") as o:
                     f"COG{n % 211:04d}\\t{'JKLDVT'[n % 6]}\\n")
 """
 
-# the serial oracle takes seconds per read at this database size, so the
-# sample is mapped by a pool of spawned workers that load the shard from disk
+# phase 13: the 1 Gbp run; reads of the stored-index check, and the
+# oracle sample's worker processes (forked: they share the ~1 GB shard)
+SCALE_MAI_READS = 2048
+SCALE_ORACLE_WORKERS = 8
+
+# the serial oracle takes seconds per read at this database size, so a
+# sample is mapped by a pool of workers: spawned ones load the shard from
+# disk (_oracle_worker_init), forked ones find it here
 _worker_state: dict = {}
 
 
@@ -319,21 +347,29 @@ class Phase:
         return False
 
 
-def compare(label, fn, ref, arrs, *width, timed: dict = None, locate=None):
+def compare(label, fn, ref, arrs, *width, timed: dict = None, locate=None,
+            plain: dict = None):
     """A kernel wrapper ``fn`` against its plain version ``ref`` on the same
     CUDA tensors; returns the max abs difference. Exact int32 arithmetic:
     any difference fails. ``timed``, when given, gets the plain call's
     milliseconds by CUDA events (``plain_ms``); ``locate(got, want)``, when
-    given, says where a difference comes from before the failure."""
+    given, says where a difference comes from before the failure;
+    ``plain``, when given, keeps the plain version's output by width for
+    the next kernel on the same inputs (the plain sweep takes seconds)."""
     got = fn(*arrs, *width)
     torch.cuda.synchronize()
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    start.record()
-    want = ref(*arrs, *width)
-    end.record()
-    torch.cuda.synchronize()
-    if timed is not None:
-        timed["plain_ms"] = start.elapsed_time(end)
+    if plain is not None and width in plain:
+        want = plain[width]
+    else:
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        want = ref(*arrs, *width)
+        end.record()
+        torch.cuda.synchronize()
+        if timed is not None:
+            timed["plain_ms"] = start.elapsed_time(end)
+        if plain is not None:
+            plain[width] = want
     err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max()) \
         if got.numel() else 0
     n, e2 = arrs[1].shape
@@ -375,11 +411,15 @@ def kernel_entry(name, source, replaces, arrs, width, clock_mhz, err, fn,
                        width[0]], **extra)
 
 
-def write_fastq(path, reads, first: int = 0):
-    with open(path, "w") as f:
-        for i, seq in enumerate(reads, first):
-            s = seq.tobytes().decode()
-            f.write(f"@read{i}\n{s}\n+\n{'I' * len(s)}\n")
+def format_maps(maps, shard, read_id: str) -> list:
+    """Unfiltered mappings of one read as mapping lines."""
+    return [MappingLine(
+        read_id=read_id, read_len=m.query_len, strand=m.strand,
+        contig_id=shard.contig_names[m.ref_seqid],
+        contig_len=shard.contig_lengths[m.ref_seqid],
+        ref_start=m.ref_start, ref_end=m.ref_end,
+        identity=m.nuc_identity, intersection=m.conserved,
+        sketch_size=m.sketch_size).format() for m in maps]
 
 
 def sketch_params(argv):
@@ -845,14 +885,15 @@ def mesh_phase(args, times: dict, db: str, fq: str, reads, shard, params,
         sdir = os.path.join(args.workdir, "mesh_sample")
         os.makedirs(sdir, exist_ok=True)
         sample_fq = os.path.join(sdir, "sample.fastq")
-        write_fastq(sample_fq, reads[:SAMPLE])
+        write_fastq(sample_fq, reads[:MESH_SAMPLE])
         outs = {e: os.path.join(sdir, e) for e in ("torch", "oracle")}
         map_query_file_sharded(engine, params, sample_fq, outs["torch"])
-        step = -(-SAMPLE // MESH_ORACLE_WORKERS)
+        step = -(-MESH_SAMPLE // MESH_ORACLE_WORKERS)
         pieces = []
         for w in range(MESH_ORACLE_WORKERS):
             pieces.append(os.path.join(sdir, f"sample{w}.fastq"))
-            write_fastq(pieces[-1], reads[w * step:min((w + 1) * step, SAMPLE)],
+            write_fastq(pieces[-1],
+                        reads[w * step:min((w + 1) * step, MESH_SAMPLE)],
                         first=w * step)
         jobs, part_files = [], []
         with ProcessPoolExecutor(
@@ -880,7 +921,7 @@ def mesh_phase(args, times: dict, db: str, fq: str, reads, shard, params,
                                      "and the oracle differ")
         with open(outs["oracle"]) as f:
             info["sample_lines"] = sum(1 for _ in f)
-        log(f"{SAMPLE}-read sample over the mesh's {n_shard} partitions: "
+        log(f"{MESH_SAMPLE}-read sample over the mesh's {n_shard} partitions: "
             f"{info['sample_lines']} mapping lines and .meta byte-identical "
             f"with the torch engine and the serial oracle "
             f"({n_shard} x {MESH_ORACLE_WORKERS} workers)")
@@ -1380,6 +1421,195 @@ def tools_phase(args, times: dict, card: str, db: str, out: str) -> dict:
     return info
 
 
+def at_scale_phase(args, times: dict, card: str, counters, dev,
+                   clock_mhz: float) -> tuple:
+    """The repo's 1 Gbp run through the port's bench (phase 13): build and
+    store the index once, map the 16,384 reads on the shard as built, the
+    same pass at each bucket's own L1 hit capacity, the union, both EM
+    rounds, ``mapAgainstIndex`` on the stored index (its one restore, held
+    to the bench's lines), then the checks, the batch kernel against its
+    plain version on the first 1 Gbp slab and, last and alone, the oracle
+    sample. Returns (the run's numbers, the batch kernel's launches on the
+    path, its max abs difference, its numbers per slab)."""
+    cache = os.path.join(args.workdir, "bench_cache")
+    params = bench.bench_params()
+    batch = l2_sweep.l2_event_sweep_batch
+    info: dict = {"card": card, "bases": bench.LARGE_BASES,
+                  "seed": bench.LARGE_SEED}
+    with Phase("scale_index", times):
+        shard, reads, build = bench.build_db_large(cache_dir=cache)
+        if build.get("cache") != "miss":
+            raise AssertionError(f"the 1 Gbp index was not built: {build}")
+        info.update(build=build, minimizers=shard.n_minimizers,
+                    freq_threshold=int(shard.freq_threshold),
+                    index_bytes=os.path.getsize(
+                        bench.cache_prefix(cache, bench.LARGE_BASES,
+                                           bench.LARGE_SEED) + ".1.npz"))
+        log(f"1 Gbp index built and stored: {json.dumps(info)}")
+    prefix = bench.cache_prefix(cache, bench.LARGE_BASES, bench.LARGE_SEED)
+
+    for fn in counters:
+        fn.launches = 0
+    l1._MINHITS.clear()  # the table as a fresh process computes it
+    detail: dict = {}
+    with Phase("scale_map", times):
+        engine, results = bench.map_shard_bench(shard, reads, params, dev,
+                                                detail)
+    info["bench"] = detail
+    log("1 Gbp bench " + json.dumps(detail))
+    # the same pass at each bucket's own capacity: the reads the override
+    # keeps from the serial oracle, and the same mappings either way
+    with Phase("scale_default_cap", times):
+        own = TorchMapperEngine(shard, params, device=dev,
+                                read_len_buckets=bench.BENCH_BUCKETS,
+                                tables=engine.tables)
+        t0 = time.perf_counter()
+        own_results = own.map_reads(reads)
+        torch.cuda.synchronize()
+        info["default_cap"] = dict(
+            hits_max={b: own._config_for(b).hits_max
+                      for b in bench.BENCH_BUCKETS},
+            oracle_fallbacks=own.stats["oracle_fallbacks"],
+            map_s=time.perf_counter() - t0)
+        differ = [i for i, (a, b) in enumerate(zip(own_results, results))
+                  if a != b and format_maps(a, shard, "r")
+                  != format_maps(b, shard, "r")]
+        if differ:
+            raise AssertionError(f"at each bucket's own L1 hit capacity "
+                                 f"the 1 Gbp mappings of {len(differ)} reads "
+                                 f"differ from the bench's, read{differ[0]} "
+                                 "first")
+        del own, own_results
+        log("1 Gbp pass at each bucket's own L1 hit capacity: "
+            + json.dumps(info["default_cap"]))
+    with Phase("scale_union", times):
+        merged, n_mapped = bench.unify_lines(params, [results], [shard],
+                                             len(reads))
+    with Phase("scale_em", times):
+        info["em_1M"] = bench.em_bench_synthetic(np.random.default_rng(7),
+                                                 dev)
+        info["em_realdist"] = bench.em_bench_realdist(merged, [shard], dev)
+        log("1 Gbp EM: " + json.dumps({k: info[k] for k in
+                                        ("em_1M", "em_realdist")}))
+    mai_dir = os.path.join(args.workdir, "scale_mai")
+    os.makedirs(mai_dir, exist_ok=True)
+    mai_fq = os.path.join(mai_dir, "reads.fastq")
+    mai_out = os.path.join(mai_dir, "out")
+    write_fastq(mai_fq, reads[:SCALE_MAI_READS])
+    mai_stats: dict = {}
+    with Phase("scale_map_against_index", times):
+        if cli_main(["mapAgainstIndex", "--index", prefix, "--query", mai_fq,
+                     "--output", mai_out, "--all", "--mapping-engine",
+                     "torch"], engine_stats=mai_stats) != 0:
+            raise AssertionError("mapAgainstIndex on the 1 Gbp index failed")
+        torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in counters}
+
+    with Phase("scale_checks", times):
+        info.update(launches=launches, reads_mapped_union=n_mapped,
+                    union_lines=len(merged),
+                    restore=dict(load_s=mai_stats["shard_load_s"][0],
+                                 by="mapAgainstIndex"),
+                    map_against_index=dict(
+                        reads=SCALE_MAI_READS,
+                        seconds=times["scale_map_against_index"],
+                        **mai_stats))
+        if launches[batch.__name__] <= 0:
+            raise AssertionError("the batch kernel never ran at 1 Gbp")
+        if detail["oracle_fallbacks"] > 0.01 * len(reads):
+            raise AssertionError(f"{detail['oracle_fallbacks']} oracle "
+                                 f"fallbacks of {len(reads)} reads at 1 Gbp")
+        if detail["n_mapped"] < 0.9 * len(reads) or n_mapped != \
+                detail["n_mapped"]:
+            raise AssertionError(f"{detail['n_mapped']} (union {n_mapped}) "
+                                 f"of {len(reads)} reads mapped at 1 Gbp")
+        # (each EM round raised already if it left the host's by > 1e-12)
+        want = [line for line in merged
+                if int(line.split(" ", 1)[0][4:]) < SCALE_MAI_READS]
+        with open(mai_out) as f:
+            got = f.read().splitlines()
+        if got != want:
+            raise AssertionError(
+                f"mapAgainstIndex on the stored 1 Gbp index: {len(got)} "
+                f"lines, {sum(a != b for a, b in zip(got, want))} differing "
+                f"from the bench's union's {len(want)}")
+        meta = read_meta(mai_out)
+        if meta["TotalReads"] != SCALE_MAI_READS or meta["ReadsMapped"] != \
+                len({line.split(" ", 1)[0] for line in want}):
+            raise AssertionError(f"mapAgainstIndex .meta {meta}")
+        log(f"mapAgainstIndex on the stored 1 Gbp index, {SCALE_MAI_READS} "
+            f"reads: {len(got)} lines equal to the bench's union; "
+            + json.dumps(info["map_against_index"]))
+
+    # where the loop's time goes: a fresh engine on the same tables, a
+    # synchronise after each phase
+    with Phase("scale_breakdown", times):
+        fresh = TorchMapperEngine(shard, params, device=dev,
+                                  read_len_buckets=bench.BENCH_BUCKETS,
+                                  tables=engine.tables, profile=True,
+                                  hits_max=bench.HITS_MAX)
+        t0 = time.perf_counter()
+        fresh.map_reads(reads)
+        info["mapping_phase_s"] = dict(fresh.stats["phase_s"],
+                                       total=time.perf_counter() - t0)
+        del fresh
+        log("1 Gbp mapping phases (s, synchronised): "
+            + json.dumps(info["mapping_phase_s"]))
+
+    with Phase("scale_kernel", times):
+        ref = l2_sweep.l2_event_sweep_ref
+        b0 = engine._bucket_of(len(reads[0]))
+        chunk = [r for r in reads if engine._bucket_of(len(r)) == b0]
+        setups = engine.l2_slab_setups(chunk[:engine.CHUNK])
+        timed: dict = {}
+        slabs = []
+        for i, (st, sp) in enumerate(setups):
+            arrs = [t.contiguous() for t in (st.meta, st.qrank, st.signinq,
+                                             st.rows)]
+            if i == 0:  # the plain version takes seconds a slab: once
+                err = compare("1 Gbp slab 0", batch, ref, arrs, sp,
+                              timed=timed)
+            host = [a.cpu().numpy() for a in arrs[:3]]
+            bound_ms, bound_by, _ = sweep_bench.sweep_bound(
+                *host, clock_mhz, sp=sp)
+            inc, rec = sweep_bench.sweep_routes(*host, sp)
+            slabs.append(dict(
+                shape=[int(arrs[1].shape[0]), int(arrs[1].shape[1]), sp],
+                ms=sweep_bench.time_ms(lambda: batch(*arrs, sp), dev, 5),
+                bound_ms=bound_ms, bound_by=bound_by,
+                incremental_events=int(inc.sum()),
+                recount_events=int(rec.sum())))
+        info["kernel"] = dict(bucket=b0, slabs=slabs, max_abs_err=err,
+                              plain_ms_slab0=timed["plain_ms"])
+        log("batch kernel on the first 1 Gbp chunk: " + json.dumps(
+            info["kernel"]))
+
+    # the serial oracle on the sample, after every timed step: workers
+    # forked from this process read its shard, none loads one
+    with Phase("scale_oracle_sample", times):
+        _worker_state.update(shard=shard, params=params)
+        with multiprocessing.get_context("fork").Pool(
+                SCALE_ORACLE_WORKERS) as pool:
+            _POOLS.append(pool)
+            oracle_maps = pool.map(_oracle_map, reads[:SAMPLE], chunksize=1)
+        _worker_state.clear()
+        n_lines = 0
+        for i, maps in enumerate(oracle_maps):
+            want = format_maps(maps, shard, f"read{i}")
+            if format_maps(results[i], shard, f"read{i}") != want:
+                raise AssertionError(f"read{i} at 1 Gbp: the device engine "
+                                     "and the serial oracle differ")
+            n_lines += len(want)
+        info["sample_lines"] = n_lines
+        log(f"{SAMPLE}-read sample at 1 Gbp: {n_lines} mapping lines "
+            f"identical on the device engine and the serial oracle "
+            f"({SCALE_ORACLE_WORKERS} forked workers)")
+    del engine, shard, reads, results, merged
+    gc.collect()
+    shutil.rmtree(cache, ignore_errors=True)
+    return info, launches[batch.__name__], err, info["kernel"]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--genera", type=int, default=12)
@@ -1491,9 +1721,11 @@ def main(argv=None) -> int:
         for i, (st, sp) in enumerate(setups):
             arrs = [t.contiguous() for t in (st.meta, st.qrank, st.signinq,
                                              st.rows)]
+            plain: dict = {}  # batch and rb share the width sp
             for fn, width in sweeps:
                 errs[fn.__name__].append(compare(
-                    f"main-path slab {i}", fn, ref, arrs, width(sp)))
+                    f"main-path slab {i}", fn, ref, arrs, width(sp),
+                    plain=plain))
                 slab_ms[fn.__name__].append(sweep_bench.time_ms(
                     lambda: fn(*arrs, width(sp)), dev, 5))
             inc, rec = sweep_bench.sweep_routes(
@@ -1589,19 +1821,10 @@ def main(argv=None) -> int:
                 initargs=(shard_path, params)) as pool:
             oracle_maps = list(pool.map(_oracle_map, sample))
 
-        def lines(maps):
-            return [MappingLine(
-                read_id=f"read{i}", read_len=m.query_len, strand=m.strand,
-                contig_id=shard.contig_names[m.ref_seqid],
-                contig_len=shard.contig_lengths[m.ref_seqid],
-                ref_start=m.ref_start, ref_end=m.ref_end,
-                identity=m.nuc_identity, intersection=m.conserved,
-                sketch_size=m.sketch_size).format() for m in maps]
-
         n_lines = 0
         for i in range(len(sample)):
-            want = lines(oracle_maps[i])
-            got = lines(dev_maps[i])
+            want = format_maps(oracle_maps[i], shard, f"read{i}")
+            got = format_maps(dev_maps[i], shard, f"read{i}")
             if got != want:
                 raise AssertionError(f"read{i}: device {got} != oracle {want}")
             n_lines += len(want)
@@ -1785,7 +2008,19 @@ def main(argv=None) -> int:
     # ---- 12. the host tools on the card's outputs --------------------------
     tools = tools_phase(args, times, card, db, out)
 
-    # ---- 13. summary ------------------------------------------------------
+    # ---- 13. the 1 Gbp run ------------------------------------------------
+    scale, scale_batch, scale_err, scale_kernel = at_scale_phase(
+        args, times, card, counters, dev, clock_mhz)
+    batch_row.update(launches=batch_row["launches"] + scale_batch,
+                     launches_at_scale=scale_batch,
+                     max_abs_err=max(batch_row["max_abs_err"], scale_err),
+                     at_scale_ms_by_slab=[r["ms"] for r in
+                                          scale_kernel["slabs"]],
+                     at_scale_bound_ms_by_slab=[r["bound_ms"] for r in
+                                                scale_kernel["slabs"]],
+                     at_scale_plain_ms_slab0=scale_kernel["plain_ms_slab0"])
+
+    # ---- 14. summary ------------------------------------------------------
     map_s = engine_stats["map_s"]
     summary = {
         "reads": len(reads), "reads_mappable": mappable,
@@ -1802,7 +2037,7 @@ def main(argv=None) -> int:
         "mapping_phase_s": breakdown, "sweep_bench_ms": scenario_ms,
         "sm_clock_max_mhz": clock_mhz, "map_against_index": mai,
         "long_read": long_info, "mesh": mesh, "experiments": acc,
-        "tools": tools, "card": card,
+        "tools": tools, "at_scale": scale, "card": card,
     }
     log("summary " + json.dumps(summary))
     shutil.rmtree(args.workdir, ignore_errors=True)

@@ -19,6 +19,7 @@ maxima.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from dataclasses import dataclass
 from typing import Dict, List, Sequence
@@ -99,11 +100,17 @@ class TorchMapperEngine:
 
     def __init__(self, shard, params, device="cuda",
                  read_len_buckets: Sequence[int] = None,
-                 tables: DeviceTables = None, profile: bool = False):
+                 tables: DeviceTables = None, profile: bool = False,
+                 hits_max: int = None):
         """``device`` defaults to CUDA and raises without it; ``"cpu"`` runs
         the plain versions of every kernel. ``tables`` reuses an uploaded
         index; ``profile`` synchronises after each phase so that
-        ``stats["phase_s"]`` holds device-inclusive wall seconds."""
+        ``stats["phase_s"]`` holds device-inclusive wall seconds.
+        ``hits_max`` raises every bucket's L1 hit capacity to it where it
+        is larger (``JaxMapperEngine``'s override): structured references
+        give hit totals far above the density heuristic, and a read over
+        the capacity goes to the serial oracle. The flat L1 expansion holds
+        a chunk's real hits, so the override moves only that line."""
         self.device = require_cuda(device)
         self.shard = shard
         self.params = params
@@ -111,6 +118,7 @@ class TorchMapperEngine:
                        else device_tables(shard, self.device))
         self.buckets = tuple(sorted(read_len_buckets or self.DEFAULT_BUCKETS))
         self.profile = profile
+        self.hits_max_override = hits_max
         self.stats = {"oracle_fallbacks": 0, "l2_candidates": 0,
                       "l2_slabs": 0, "phase_s": {}}
         self._configs: Dict[int, MapConfig] = {}
@@ -121,8 +129,12 @@ class TorchMapperEngine:
     def _config_for(self, bucket: int) -> MapConfig:
         if bucket not in self._configs:
             p = self.params
-            self._configs[bucket] = MapConfig.for_read_len(
-                bucket, p.kmer_size, p.window_size, p.alphabet_size)
+            cfg = MapConfig.for_read_len(bucket, p.kmer_size, p.window_size,
+                                         p.alphabet_size)
+            override = self.hits_max_override
+            if override and override > cfg.hits_max:
+                cfg = dataclasses.replace(cfg, hits_max=override)
+            self._configs[bucket] = cfg
         return self._configs[bucket]
 
     def _minhits_upto(self, s_max: int) -> torch.Tensor:

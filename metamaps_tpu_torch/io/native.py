@@ -184,7 +184,6 @@ def _build_and_load_winnow_locked() -> Optional[ctypes.CDLL]:
     global _WINNOW_LIB, _WINNOW_TRIED
     if _WINNOW_TRIED:
         return _WINNOW_LIB
-    _WINNOW_TRIED = True
     try:
         so = _compile("winnow.cpp", "libwinnow.so", ["-O3"])
         if so is None:
@@ -200,6 +199,10 @@ def _build_and_load_winnow_locked() -> Optional[ctypes.CDLL]:
         _WINNOW_LIB = lib
     except Exception:
         _WINNOW_LIB = None
+    finally:
+        # only once the attempt is over: a thread that saw the flag
+        # earlier took the unlocked path and the numpy winnower
+        _WINNOW_TRIED = True
     return _WINNOW_LIB
 
 

@@ -59,7 +59,7 @@ def round_ms(step, f, reps: int) -> float:
     return (time.perf_counter() - t0) * 1e3 / reps
 
 
-def _agreement(step, f, want, n_lines: int, what: str):
+def agreement(step, f, want, n_lines: int, what: str):
     """(ll relative, f absolute) difference of ``step``'s round from the
     host round ``want``; raises above 1e-12."""
     fd, lld = step(f)
@@ -72,34 +72,45 @@ def _agreement(step, f, want, n_lines: int, what: str):
     return ll_rel, f_abs
 
 
+def table_row(table: MappingTable, device, reps: int,
+              sharded_ranks: int = 0) -> dict:
+    """One round on ``device`` from the uniform start against the host
+    round on ``table``: each round's milliseconds and their agreement; with
+    ``sharded_ranks`` > 0 also the sharded round over that many ranks of
+    ``device``."""
+    from ..parallel.mesh import make_em_iterate_sharded
+
+    n_lines = len(table.read_of_line)
+    f = np.full(len(table.taxon_list), 1.0 / len(table.taxon_list))
+    want = em_iterate(table, f)
+    step = make_em_iterate_torch(table, device)
+    ll_rel, f_abs = agreement(step, f, want, n_lines, "torch")
+    row = dict(lines=n_lines, reads=len(table.read_ids),
+               taxa=len(table.taxon_list), device=str(device),
+               round_ms=round_ms(step, f, reps),
+               host_round_ms=round_ms(lambda x: em_iterate(table, x), f,
+                                      reps),
+               ll_rel_diff=ll_rel, f_max_abs_diff=f_abs)
+    if sharded_ranks:
+        sharded = make_em_iterate_sharded(table, [device] * sharded_ranks)
+        ll_s, f_s = agreement(sharded, f, want, n_lines, "sharded")
+        row.update(sharded_ranks=sharded_ranks,
+                   sharded_round_ms=round_ms(sharded, f, reps),
+                   sharded_ll_rel_diff=ll_s, sharded_f_max_abs_diff=f_s)
+    return row
+
+
 def run(device, sizes=SIZES, reps: int = 5, log=print,
         sharded_ranks: int = 0) -> list:
     """Time the round on ``device`` and on the host at each table size, and
     with ``sharded_ranks`` > 0 the sharded round over that many ranks of
     ``device``; returns one dict per size."""
-    from ..parallel.mesh import make_em_iterate_sharded
-
     device = torch.device(device)
     rng = np.random.default_rng(SEED)
     rows = []
     for n_lines in sizes:
-        table = synthetic_table(rng, n_lines)
-        f = np.full(len(table.taxon_list), 1.0 / len(table.taxon_list))
-        want = em_iterate(table, f)
-        step = make_em_iterate_torch(table, device)
-        ll_rel, f_abs = _agreement(step, f, want, n_lines, "torch")
-        row = dict(lines=len(table.read_of_line), reads=len(table.read_ids),
-                   taxa=len(table.taxon_list), device=str(device),
-                   round_ms=round_ms(step, f, reps),
-                   host_round_ms=round_ms(lambda x: em_iterate(table, x), f,
-                                          reps),
-                   ll_rel_diff=ll_rel, f_max_abs_diff=f_abs)
-        if sharded_ranks:
-            sharded = make_em_iterate_sharded(table, [device] * sharded_ranks)
-            ll_s, f_s = _agreement(sharded, f, want, n_lines, "sharded")
-            row.update(sharded_ranks=sharded_ranks,
-                       sharded_round_ms=round_ms(sharded, f, reps),
-                       sharded_ll_rel_diff=ll_s, sharded_f_max_abs_diff=f_s)
+        row = table_row(synthetic_table(rng, n_lines), device, reps,
+                        sharded_ranks)
         log(json.dumps(row))
         rows.append(row)
     return rows
