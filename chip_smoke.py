@@ -140,9 +140,23 @@ Phases (each prints its wall seconds; any failure exits non-zero):
    oracle's lines (worker processes forked after every timed step, which
    share the shard); for the record, each mapping phase's seconds in a
    fresh engine that synchronises after each;
-14. summary: reads/s of every mapping path, classify seconds, peak device
-   memory, the tools' seconds, the 1 Gbp run's numbers, then the card
-   line, the kernel JSON line and the final JSON line.
+14. u_at_scale: the novel-species chain on phase 13's mappings through
+   ``metamaps_tpu_torch/profiling/u_at_scale.py``: the 16,384-read union
+   dumped with its sidecars, the database directory written around the
+   same genomes (re-synthesised), then ``classify`` (EM rounds on the
+   card, then ``--emBackend numpy`` on a copy), ``selfSimilarity`` on the
+   two jobs with the fewest B bases (the JAX script's reduced workload,
+   in two worker processes), ``collect`` and ``classifyU``. Checks: the
+   seven .EM* files byte-identical on the card and the host, one
+   .U.reads2Taxon row per read, .U.WIMP not empty, no job's histogram
+   counts more chunks of a length than it drew, every identity between
+   the floor that the acceptance rule admits at its chunk length
+   (``u_at_scale.identity_floor``: 73; a chunk maps where its identity's
+   upper bound reaches 80) and 100;
+   each step's seconds beside the card's name and power limit;
+15. summary: reads/s of every mapping path, classify seconds, peak device
+   memory, the tools' seconds, the 1 Gbp run's and the U chain's numbers,
+   then the card line, the kernel JSON line and the final JSON line.
 """
 from __future__ import annotations
 
@@ -166,6 +180,7 @@ import torch
 
 from metamaps_tpu_torch.cli import _add_sketch_args, _sketch_params
 from metamaps_tpu_torch.cli import main as cli_main
+from metamaps_tpu_torch.db import self_similarity as ss
 from metamaps_tpu_torch.engine import em, mapper_oracle
 from metamaps_tpu_torch.engine.index import (
     SketchShard,
@@ -185,7 +200,8 @@ from metamaps_tpu_torch.engine.mapwrap import (map_query_file_against_shard,
 from metamaps_tpu_torch.parallel.sharded_engine import (ShardedMapperEngine,
                                                         map_query_file_sharded)
 from metamaps_tpu_torch.params import Parameters
-from metamaps_tpu_torch.profiling import bench, em_bench, sweep_bench
+from metamaps_tpu_torch.profiling import (bench, em_bench, sweep_bench,
+                                          u_at_scale)
 from metamaps_tpu_torch.profiling.bench import write_fastq
 from metamaps_tpu_torch.profiling.sweep_ab import LONG_READ, LONG_READ_ARGS
 from metamaps_tpu_torch.sim.synth_db import ont_read, write_synth_db_dir
@@ -272,6 +288,9 @@ with open(out + ".emapper.annotations", "w") as o:
 # oracle sample's worker processes (forked: they share the ~1 GB shard)
 SCALE_MAI_READS = 2048
 SCALE_ORACLE_WORKERS = 8
+# phase 14: the selfSimilarity jobs run (those with the fewest B bases),
+# each in its own worker process
+U_SCALE_JOBS = 2
 
 # the serial oracle takes seconds per read at this database size, so a
 # sample is mapped by a pool of workers: spawned ones load the shard from
@@ -1430,7 +1449,8 @@ def at_scale_phase(args, times: dict, card: str, counters, dev,
     to the bench's lines), then the checks, the batch kernel against its
     plain version on the first 1 Gbp slab and, last and alone, the oracle
     sample. Returns (the run's numbers, the batch kernel's launches on the
-    path, its max abs difference, its numbers per slab)."""
+    path, its max abs difference, its numbers per slab, and the union for
+    phase 14: its lines, the reads and the database's bases)."""
     cache = os.path.join(args.workdir, "bench_cache")
     params = bench.bench_params()
     batch = l2_sweep.l2_event_sweep_batch
@@ -1604,10 +1624,89 @@ def at_scale_phase(args, times: dict, card: str, counters, dev,
         log(f"{SAMPLE}-read sample at 1 Gbp: {n_lines} mapping lines "
             f"identical on the device engine and the serial oracle "
             f"({SCALE_ORACLE_WORKERS} forked workers)")
-    del engine, shard, reads, results, merged
+    union = (merged, reads, detail["db_bases"])
+    del engine, shard, results, merged, reads
     gc.collect()
     shutil.rmtree(cache, ignore_errors=True)
-    return info, launches[batch.__name__], err, info["kernel"]
+    return info, launches[batch.__name__], err, info["kernel"], union
+
+
+def u_at_scale_phase(args, times: dict, card: str, union) -> dict:
+    """The novel-species chain on phase 13's mappings (phase 14), through
+    ``profiling/u_at_scale.py``'s ``main``: the union dumped with its
+    sidecars, the database directory around the re-synthesised 1 Gbp
+    genomes, then ``classify`` on the card (and on the host, compared),
+    ``selfSimilarity`` on the ``U_SCALE_JOBS`` jobs with the fewest B
+    bases in as many worker processes, ``collect`` and ``classifyU``; then
+    the checks. Returns the chain's numbers."""
+    merged, reads, db_bases = union
+    n_reads = len(reads)
+    work = os.path.join(args.workdir, "u_at_scale")
+    os.makedirs(work, exist_ok=True)
+    mappings = os.path.join(work, "bench_mappings_16k.txt")
+    db = os.path.join(work, "u_db")
+    with Phase("u_inputs", times):
+        bench.dump_mappings(mappings, merged, reads, bench.bench_params(),
+                            db_bases)
+        _, genomes, names = bench.synth_genomes(bench.LARGE_BASES,
+                                                bench.LARGE_SEED)
+        u_at_scale.build_db_dir(db, genomes, names)
+        del genomes
+        jobs = ss.prepare(db, os.path.join(db, "selfSimilarity"))
+        todo = u_at_scale.fewest_b_jobs(db, jobs, U_SCALE_JOBS)
+    record = os.path.join(work, "record.json")
+    with Phase("u_chain", times):
+        rc = u_at_scale.main([
+            "--mappings", mappings, "--db-dir", db, "--jobs",
+            ",".join(map(str, todo)), "--workers", str(U_SCALE_JOBS),
+            "--no-split", "--out", record])
+        with open(record) as f:
+            rec = json.load(f)
+    with Phase("u_checks", times):
+        failures = list(rec["selfsim_check_failures"])
+        if rc != 0:
+            failures.append(f"u_at_scale.main exited {rc}")
+        differ = [k for k, same in rec["em_equal_numpy"].items() if not same]
+        if differ:
+            failures.append(f"{differ}: EM on the card and on the host "
+                            "wrote different bytes")
+        if rec["selfsim_jobs_run"] != todo:
+            failures.append(f"jobs {rec['selfsim_jobs_run']} ran, {todo} "
+                            "asked")
+        if rec["u_reads2taxon_rows"] != n_reads:
+            failures.append(f"{rec['u_reads2taxon_rows']} .U.reads2Taxon "
+                            f"rows for {n_reads} reads")
+        if rec["u_wimp_rows"] <= 0:
+            failures.append(".U.WIMP is empty")
+        # identities below --pi 80 are the reference's: a chunk maps where
+        # its identity's upper bound reaches 80 (engine/mapper_oracle.py)
+        with open(os.path.join(db, "selfSimilarities.txt")) as f:
+            rows = [line.split("\t")[1:3] for line in f]
+        idents = {int(i) for _, i in rows}
+        bad = sorted({(int(n), int(i)) for n, i in rows if not
+                      u_at_scale.identity_floor(int(n)) <= int(i) <= 100})
+        if not rows:
+            failures.append("selfSimilarities.txt is empty")
+        if bad:
+            failures.append(f"selfSimilarities.txt (length, identity) {bad} "
+                            "outside [identity_floor, 100]")
+        if failures:
+            raise AssertionError("the U chain at 1 Gbp: "
+                                 + "; ".join(failures))
+        info = {k: rec[k] for k in (
+            "classify_s", "classify_numpy_s", "selfsim_jobs_run",
+            "selfsim_job_s", "selfsim_job_peak_rss_bytes",
+            "selfsim_job_peak_rss_before_bytes", "selfsim_total_s",
+            "selfsim_lines", "classifyU_s", "em_wimp_rows", "u_wimp_rows",
+            "u_reads2taxon_rows")}
+        info.update(card=card, selfsim_job_b_bases=[
+            rec["selfsim_job_b_bases"][i] for i in todo],
+            selfsim_identities=[min(idents), max(idents)])
+        log(f"U chain at 1 Gbp ({card}): .EM* equal on the card and the "
+            f"host, {n_reads} .U.reads2Taxon rows, {rec['u_wimp_rows']} "
+            f".U.WIMP rows; " + json.dumps(info))
+    shutil.rmtree(work, ignore_errors=True)
+    return info
 
 
 def main(argv=None) -> int:
@@ -2009,7 +2108,7 @@ def main(argv=None) -> int:
     tools = tools_phase(args, times, card, db, out)
 
     # ---- 13. the 1 Gbp run ------------------------------------------------
-    scale, scale_batch, scale_err, scale_kernel = at_scale_phase(
+    scale, scale_batch, scale_err, scale_kernel, union = at_scale_phase(
         args, times, card, counters, dev, clock_mhz)
     batch_row.update(launches=batch_row["launches"] + scale_batch,
                      launches_at_scale=scale_batch,
@@ -2020,7 +2119,11 @@ def main(argv=None) -> int:
                                                 scale_kernel["slabs"]],
                      at_scale_plain_ms_slab0=scale_kernel["plain_ms_slab0"])
 
-    # ---- 14. summary ------------------------------------------------------
+    # ---- 14. the U chain on the 1 Gbp run's mappings ----------------------
+    u_scale = u_at_scale_phase(args, times, card, union)
+    del union
+
+    # ---- 15. summary ------------------------------------------------------
     map_s = engine_stats["map_s"]
     summary = {
         "reads": len(reads), "reads_mappable": mappable,
@@ -2037,7 +2140,8 @@ def main(argv=None) -> int:
         "mapping_phase_s": breakdown, "sweep_bench_ms": scenario_ms,
         "sm_clock_max_mhz": clock_mhz, "map_against_index": mai,
         "long_read": long_info, "mesh": mesh, "experiments": acc,
-        "tools": tools, "at_scale": scale, "card": card,
+        "tools": tools, "at_scale": scale, "u_at_scale": u_scale,
+        "card": card,
     }
     log("summary " + json.dumps(summary))
     shutil.rmtree(args.workdir, ignore_errors=True)
