@@ -1561,8 +1561,8 @@ def at_scale_phase(args, times: dict, card: str, counters, dev,
             f"reads: {len(got)} lines equal to the bench's union; "
             + json.dumps(info["map_against_index"]))
 
-    # where the loop's time goes: a fresh engine on the same tables, a
-    # synchronise after each phase
+    # where the loop's time goes: a fresh engine on the same tables, its
+    # phases timed by CUDA events
     with Phase("scale_breakdown", times):
         fresh = TorchMapperEngine(shard, params, device=dev,
                                   read_len_buckets=bench.BENCH_BUCKETS,
@@ -1573,7 +1573,7 @@ def at_scale_phase(args, times: dict, card: str, counters, dev,
         info["mapping_phase_s"] = dict(fresh.stats["phase_s"],
                                        total=time.perf_counter() - t0)
         del fresh
-        log("1 Gbp mapping phases (s, synchronised): "
+        log("1 Gbp mapping phases (s, stream time): "
             + json.dumps(info["mapping_phase_s"]))
 
     with Phase("scale_kernel", times):
@@ -1978,7 +1978,7 @@ def main(argv=None) -> int:
             "rounds on the card identical in bits; " + json.dumps(em_stats))
 
     # ---- where the mapping time goes: a fresh engine on the uploaded
-    # tables, as mapDirectly builds one, with a synchronise after each phase
+    # tables, as mapDirectly builds one, its phases timed by CUDA events
     with Phase("breakdown", times):
         fresh = TorchMapperEngine(shard, params, device=dev,
                                   tables=engine.tables, profile=True)
@@ -1986,7 +1986,7 @@ def main(argv=None) -> int:
         fresh.map_reads(reads)
         breakdown = dict(fresh.stats["phase_s"],
                          total=time.perf_counter() - t0)
-        log("mapping phases (s, synchronised): " + json.dumps(breakdown))
+        log("mapping phases (s, stream time): " + json.dumps(breakdown))
     del engine, fresh
 
     # ---- 7. the sweep bench: the path of the other sweep kernels ----------

@@ -83,8 +83,8 @@ def _add_query_args(p: argparse.ArgumentParser):
                    "engine (oracle)")
     p.add_argument("--profile", action="store_true",
                    help="per-phase torch engine seconds on stderr, one line "
-                   "per shard and query file (a synchronise after each "
-                   "phase)")
+                   "per shard and query file (on a card, the stream time "
+                   "between CUDA events at each phase's edges)")
 
 
 def _add_device_arg(p: argparse.ArgumentParser, what: str):

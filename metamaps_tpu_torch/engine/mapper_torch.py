@@ -19,15 +19,15 @@ maxima.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-import time
 from dataclasses import dataclass
 from typing import Dict, List, Sequence
 
 import numpy as np
 import torch
 
-from metamaps_tpu_torch import stats
+from metamaps_tpu_torch import stats, trace
 
 from ..device import require_cuda
 from ..ops.l1 import L1Regions, l1_regions, minhits_table
@@ -104,8 +104,12 @@ class TorchMapperEngine:
                  hits_max: int = None):
         """``device`` defaults to CUDA and raises without it; ``"cpu"`` runs
         the plain versions of every kernel. ``tables`` reuses an uploaded
-        index; ``profile`` synchronises after each phase so that
-        ``stats["phase_s"]`` holds device-inclusive wall seconds.
+        index. Each phase is an ``engine.<phase>`` span (:mod:`trace`)
+        whose seconds ``stats["phase_s"]`` sums: with ``profile`` on a CUDA
+        device, the stream time between CUDA events at the phase's edges,
+        read once a chunk after its results are fetched (no synchronise is
+        added); else the span's host seconds, which on a card hold only
+        what the host waited for.
         ``hits_max`` raises every bucket's L1 hit capacity to it where it
         is larger (``JaxMapperEngine``'s override): structured references
         give hit totals far above the density heuristic, and a read over
@@ -121,6 +125,7 @@ class TorchMapperEngine:
         self.hits_max_override = hits_max
         self.stats = {"oracle_fallbacks": 0, "l2_candidates": 0,
                       "l2_slabs": 0, "phase_s": {}}
+        self._events = []  # (phase, start, end) CUDA events to read
         self._configs: Dict[int, MapConfig] = {}
         self._minhits = torch.zeros(0, dtype=torch.int64)
 
@@ -143,12 +148,11 @@ class TorchMapperEngine:
         bucket; its host table is computed once per process
         (:func:`minhits_table`)."""
         if self._minhits.numel() <= s_max:
-            t = time.perf_counter()
             p = self.params
-            self._minhits = torch.from_numpy(minhits_table(
-                s_max, p.kmer_size, float(p.percentage_identity)
-            ).astype(np.int64)).to(self.device)
-            self._phase("minhits", t)
+            with self._phase("minhits"):
+                self._minhits = torch.from_numpy(minhits_table(
+                    s_max, p.kmer_size, float(p.percentage_identity)
+                ).astype(np.int64)).to(self.device)
         return self._minhits
 
     def _bucket_of(self, length: int) -> int:
@@ -157,13 +161,24 @@ class TorchMapperEngine:
                 return b
         return -1
 
-    def _phase(self, key: str, t0: float) -> float:
-        if self.profile and self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        t1 = time.perf_counter()
-        ph = self.stats["phase_s"]
-        ph[key] = ph.get(key, 0.0) + (t1 - t0)
-        return t1
+    @contextlib.contextmanager
+    def _phase(self, key: str):
+        """An ``engine.<key>`` span whose seconds go to
+        ``stats["phase_s"][key]`` (see ``__init__``)."""
+        events = self.profile and self.device.type == "cuda"
+        if events:
+            stream = torch.cuda.current_stream(self.device)
+            start = torch.cuda.Event(enable_timing=True)
+            start.record(stream)
+        with trace.span("engine." + key) as sp:
+            yield
+        if events:
+            end = torch.cuda.Event(enable_timing=True)
+            end.record(stream)
+            self._events.append((key, start, end))
+        else:
+            ph = self.stats["phase_s"]
+            ph[key] = ph.get(key, 0.0) + (sp.t1_ns - sp.t0_ns) * 1e-9
 
     def _oracle(self, seq) -> List[ReadMapping]:
         self.stats["oracle_fallbacks"] += 1
@@ -174,51 +189,52 @@ class TorchMapperEngine:
     def map_reads(self, seqs: List[np.ndarray]) -> List[List[ReadMapping]]:
         """Map reads (uint8 arrays); per-read mapping lists in input order
         (unfiltered — the caller applies ``report_filter``)."""
-        results: List[List[ReadMapping]] = [None] * len(seqs)
-        by_bucket: Dict[int, List[int]] = {}
-        for i, s in enumerate(seqs):
-            b = self._bucket_of(len(s))
-            if b < 0:
-                results[i] = self._oracle(s)  # longer than every bucket
-            else:
-                by_bucket.setdefault(b, []).append(i)
-        for bucket, idxs in by_bucket.items():
-            cfg = self._config_for(bucket)
-            for c0 in range(0, len(idxs), self.CHUNK):
-                chunk = idxs[c0:c0 + self.CHUNK]
-                out = self._map_chunk(cfg, [seqs[i] for i in chunk])
-                for i, maps in zip(chunk, out):
-                    results[i] = maps
-        return results
+        with trace.span("engine.map_reads", reads=len(seqs)):
+            results: List[List[ReadMapping]] = [None] * len(seqs)
+            by_bucket: Dict[int, List[int]] = {}
+            for i, s in enumerate(seqs):
+                b = self._bucket_of(len(s))
+                if b < 0:
+                    results[i] = self._oracle(s)  # longer than every bucket
+                else:
+                    by_bucket.setdefault(b, []).append(i)
+            for bucket, idxs in by_bucket.items():
+                cfg = self._config_for(bucket)
+                for c0 in range(0, len(idxs), self.CHUNK):
+                    chunk = idxs[c0:c0 + self.CHUNK]
+                    with trace.span("engine.chunk", bucket=bucket,
+                                    reads=len(chunk)):
+                        out = self._map_chunk(cfg, [seqs[i] for i in chunk])
+                    for i, maps in zip(chunk, out):
+                        results[i] = maps
+            return results
 
     def _stage1(self, cfg: MapConfig, seqs) -> _Stage1:
-        t = time.perf_counter()
-        B = len(seqs)
-        reads = np.full((B, cfg.read_len_max), ord("A"), np.uint8)
-        lens = np.zeros(B, np.int64)
-        for r, s in enumerate(seqs):
-            reads[r, : len(s)] = s
-            lens[r] = len(s)
-        reads_d = torch.from_numpy(reads).to(self.device)
-        lens_d = torch.from_numpy(lens).to(self.device)
-        t = self._phase("upload", t)
+        with self._phase("upload"):
+            B = len(seqs)
+            reads = np.full((B, cfg.read_len_max), ord("A"), np.uint8)
+            lens = np.zeros(B, np.int64)
+            for r, s in enumerate(seqs):
+                reads[r, : len(s)] = s
+                lens[r] = len(s)
+            reads_d = torch.from_numpy(reads).to(self.device)
+            lens_d = torch.from_numpy(lens).to(self.device)
         k, w = cfg.kmer_size, cfg.window_size
-        q_hash, q_strand, s_size, s_ovf = sketch(
-            reads_d, lens_d, k, w, cfg.sketch_max, cfg.alphabet_size)
-        t = self._phase("sketch", t)
+        with self._phase("sketch"):
+            q_hash, q_strand, s_size, s_ovf = sketch(
+                reads_d, lens_d, k, w, cfg.sketch_max, cfg.alphabet_size)
         # the table reaches this chunk's widest sketch
         minhits = self._minhits_upto(int(s_size.max()))
-        t = time.perf_counter()
-        start, count, total, q_key = lookup(self.tables, q_hash)
-        t = self._phase("lookup", t)
-        reg = l1_regions(self.tables, start, count, total, s_size, lens_d,
-                         minhits, cfg.hits_max, cfg.cands_max)
-        # a candidate window beyond range_max sends its whole read to the
-        # oracle, like the other overflows
-        fallback = s_ovf | reg.overflow
-        fallback[reg.read[reg.n_occ > cfg.range_max]] = True
-        cand = torch.nonzero(~fallback[reg.read]).flatten()
-        self._phase("l1", t)
+        with self._phase("lookup"):
+            start, count, total, q_key = lookup(self.tables, q_hash)
+        with self._phase("l1"):
+            reg = l1_regions(self.tables, start, count, total, s_size, lens_d,
+                             minhits, cfg.hits_max, cfg.cands_max)
+            # a candidate window beyond range_max sends its whole read to
+            # the oracle, like the other overflows
+            fallback = s_ovf | reg.overflow
+            fallback[reg.read[reg.n_occ > cfg.range_max]] = True
+            cand = torch.nonzero(~fallback[reg.read]).flatten()
         return _Stage1(lens_d, q_key, q_strand, s_size, fallback, cand, reg)
 
     def _slabs(self, s1: _Stage1):
@@ -256,23 +272,38 @@ class TorchMapperEngine:
             st = l2_setup(tab, qk[rows], ss[rows], lens[rows], cs, cst, cen,
                           cfg.kmer_size, cfg.window_size, R, sc)
             out.append((st, round_up(sc + 1, 128)))
+        self._read_events()
         return out
 
     def _map_chunk(self, cfg: MapConfig, seqs) -> List[List[ReadMapping]]:
         s1 = self._stage1(cfg, seqs)
-        t = time.perf_counter()
-        N = int(s1.cand.numel())
-        res = torch.zeros((6, N), dtype=torch.int32, device=self.device)
-        for sel, R, sc in self._slabs(s1):
-            res[:, sel] = l2_gather(
-                *self._l2_args(s1, sel), k=cfg.kmer_size,
-                w=cfg.window_size, range_max=R, sketch_cols=sc)
-            self.stats["l2_slabs"] += 1
-        self.stats["l2_candidates"] += N
-        t = self._phase("l2", t)
-        out = self._collect(cfg, seqs, s1, res)
-        self._phase("collect", t)
+        with self._phase("l2"):
+            N = int(s1.cand.numel())
+            res = torch.zeros((6, N), dtype=torch.int32, device=self.device)
+            for sel, R, sc in self._slabs(s1):
+                res[:, sel] = l2_gather(
+                    *self._l2_args(s1, sel), k=cfg.kmer_size,
+                    w=cfg.window_size, range_max=R, sketch_cols=sc)
+                self.stats["l2_slabs"] += 1
+            self.stats["l2_candidates"] += N
+        with self._phase("collect"):
+            out = self._collect(cfg, seqs, s1, res)
+        self._read_events()
         return out
+
+    def _read_events(self) -> None:
+        """Add the stream time between each recorded phase's CUDA events to
+        ``stats["phase_s"]``. Called once a chunk after its results are
+        fetched (and by :meth:`l2_slab_setups` after its slabs' sizes are):
+        the stream has then passed the last event, so waiting on it waits
+        for no device work."""
+        if not self._events:
+            return
+        self._events[-1][2].synchronize()
+        ph = self.stats["phase_s"]
+        for key, start, end in self._events:
+            ph[key] = ph.get(key, 0.0) + start.elapsed_time(end) * 1e-3
+        self._events.clear()
 
     def _collect(self, cfg: MapConfig, seqs, s1: _Stage1, res):
         """Acceptance and ReadMappings (``mapper_jax._collect``,
@@ -308,8 +339,7 @@ class TorchMapperEngine:
                 nuc_identity=nuc_l[t], nuc_identity_ub=ub_l[t],
                 sketch_size=s, conserved=shd, strand=strd,
             ))
-        t0 = time.perf_counter()
-        for r in np.flatnonzero(fallback):
-            out[r] = self._oracle(seqs[r])
-        self._phase("oracle", t0)
+        with self._phase("oracle"):
+            for r in np.flatnonzero(fallback):
+                out[r] = self._oracle(seqs[r])
         return out
