@@ -9,6 +9,7 @@ Host-side parity implementations of the reference's Stat namespace
 - estimate_pvalue             (map_stats.hpp:179)
 - recommended_window_size     (map_stats.hpp:226)
 - likelihood_observed_set_sizes    (mapWrap.h:332, the mapQ binomial model)
+  and its batch over many mapping lines
 
 The reference computes in C++ ``float`` with double-precision intermediates;
 we reproduce the float32 narrowing points exactly (they decide acceptance at
@@ -20,8 +21,9 @@ survival function I_p(x+1, s-x) = q for real x and rounds up (clamped to
 [0, s]); :func:`binom_quantile_complement` mirrors that via scipy's
 incomplete beta.
 
-Counterpart: ``metamaps_tpu/stats.py``, copied unchanged so that
-the port imports nothing of the JAX package.
+Counterpart: ``metamaps_tpu/stats.py``, copied so that the port imports
+nothing of the JAX package; :func:`likelihood_observed_set_sizes_batch`
+is the port's own.
 """
 from __future__ import annotations
 
@@ -222,13 +224,35 @@ def likelihood_observed_set_sizes(
     return float(spstats.binom.pmf(intersection_size, sketch_size, e_intersection / e_union))
 
 
+def likelihood_observed_set_sizes_batch(
+    k: int, n_kmers, identity, sketch_size, intersection_size
+) -> list:
+    """:func:`likelihood_observed_set_sizes` of each element of equally long
+    sequences, as a list of Python floats, bit-equal to the scalar calls.
+    ``identity ** k * n_kmers`` is taken element by element in Python
+    scalar arithmetic, because numpy's SIMD ``power`` can differ from
+    ``**`` in the last bit. The rest runs on arrays: rounding, the sums
+    and the division are correctly rounded IEEE operations there too, and
+    one public ``binom.pmf`` call applies its argument checks, Boost pmf
+    loop and clip element by element as on a scalar."""
+    n = np.asarray(n_kmers, np.float64)
+    e_surviving = np.round(np.array(
+        [e ** k * m for m, e in zip(n_kmers, identity)], np.float64))
+    p = e_surviving / (n + (n - e_surviving))
+    return spstats.binom.pmf(np.asarray(intersection_size),
+                             np.asarray(sketch_size), p).tolist()
+
+
 def likelihood_observed_set_sizes_vec(
     k: int, n_kmers, identity, sketch_size, intersection_size
 ):
     """Vectorized :func:`likelihood_observed_set_sizes`: every argument
-    broadcasts (identical arithmetic — same np.round / division and the
-    same underlying binomial pmf kernel, so results are bit-equal to the
-    scalar calls). Calls scipy's raw ``binom._pmf`` directly: the public
+    broadcasts. Not bit-equal to the scalar calls: numpy's SIMD ``power``
+    can differ from ``**`` in the last bit, so the two agree exactly only
+    where that bit does not move the integer rounding of the expected
+    surviving k-mers (after it, the division and the binomial pmf kernel
+    are the same); :func:`likelihood_observed_set_sizes_batch` is bit-equal.
+    Calls scipy's raw ``binom._pmf`` directly: the public
     wrapper's arg masking is only needed for out-of-support inputs, which
     this model never produces (0 <= intersection <= sketch, 0 < p <= 1),
     and it costs ~10x the pmf evaluation itself."""

@@ -29,7 +29,7 @@ from util_torch import one_torch_thread  # noqa: F401  (autouse fixture)
 
 ROOT = Path(__file__).resolve().parents[1]
 READERS = ("unify.mapq_ms", "mapfile.parse_ms", "mapfile.write_ms",
-           "engine.reads_per_chunk")
+           "engine.reads_per_chunk", "unify.lines_per_mapq_batch")
 PHASES = ("upload", "sketch", "minhits", "lookup", "l1", "l2", "collect")
 
 
@@ -117,6 +117,7 @@ def test_spans_of_a_map_and_unify_nest(mini):
     assert unify.attrs["file"] == prefix
     assert unify.attrs["reads"] == 13 and unify.attrs["lines"] == lines > 0
     assert 0 < unify.attrs["mapq_s"] < (unify.t1_ns - unify.t0_ns) * 1e-9
+    assert unify.attrs["mapq_batches"] == 1  # 13 reads, one batch
 
 
 def test_phase_spans_sum_to_phase_seconds(mini):
@@ -194,8 +195,8 @@ def test_readers_on_a_hand_built_context(monkeypatch):
         _record("engine.chunk", 100.15, 100.16, bucket=4096, reads=80),
         _record("engine.chunk", 100.16, 100.17, bucket=5120, reads=100),
         _record("engine.chunk", 101.15, 101.16, bucket=4096, reads=120),
-        _record("unify", 100.5, 100.9, mapq_s=0.03),
-        _record("unify", 101.5, 101.9, mapq_s=0.05),
+        _record("unify", 100.5, 100.9, lines=160, mapq_batches=1, mapq_s=0.03),
+        _record("unify", 101.5, 101.9, lines=290, mapq_batches=2, mapq_s=0.05),
         _record("mapfile.write", 102.5, 102.6),  # after the window
     ]
     monkeypatch.setattr(trace, "spans", lambda: list(recs))
@@ -206,11 +207,29 @@ def test_readers_on_a_hand_built_context(monkeypatch):
     assert got["mapfile.write_ms"] == pytest.approx(1e6 * 0.002 / 400)
     assert got["unify.mapq_ms"] == pytest.approx(1e6 * 0.08 / 400)
     assert got["engine.reads_per_chunk"] == pytest.approx(100.0)
+    assert got["unify.lines_per_mapq_batch"] == pytest.approx(150.0)
+
+
+@pytest.mark.parametrize("unify_attrs", [
+    dict(lines=7, mapq_s=0.01),  # a program without the counter
+    dict(lines=0, mapq_batches=0, mapq_s=0.0),  # no read mapped
+])
+def test_lines_per_mapq_batch_reads_none_without_batches(monkeypatch,
+                                                         unify_attrs):
+    files = [dict(t0=100.0, t2=101.0, reads=10)]
+    recs = [_record("unify", 100.5, 100.9, **unify_attrs)]
+    monkeypatch.setattr(trace, "spans", lambda: list(recs))
+    monkeypatch.setattr(trace, "reaches", lambda t_ns: True)
+    reader = core.load_piece(ROOT, "metrics", "unify.lines_per_mapq_batch")
+    assert reader.read(_ctx(files), None) is None
+    mapq = core.load_piece(ROOT, "metrics", "unify.mapq_ms")
+    assert mapq.read(_ctx(files), None) == pytest.approx(
+        1e6 * unify_attrs["mapq_s"] / 10)
 
 
 def test_readers_give_none_once_the_ring_has_left_the_window():
     t0 = time.perf_counter()
-    with trace.span("unify", mapq_s=0.01):
+    with trace.span("unify", lines=12, mapq_batches=1, mapq_s=0.01):
         pass
     with trace.span("engine.chunk", bucket=2048, reads=10):
         pass
