@@ -86,6 +86,9 @@ class _Stage1:
     fallback: torch.Tensor  # [B] bool, read goes to the oracle
     cand: torch.Tensor  # [N] region indices scored by L2
     regions: L1Regions
+    # [3]: the chunk's L1 hits under the frequency threshold, the index
+    # occurrences the threshold removed, the most regions of one read
+    counts: torch.Tensor
 
 
 class TorchMapperEngine:
@@ -203,8 +206,10 @@ class TorchMapperEngine:
                 for c0 in range(0, len(idxs), self.CHUNK):
                     chunk = idxs[c0:c0 + self.CHUNK]
                     with trace.span("engine.chunk", bucket=bucket,
-                                    reads=len(chunk)):
-                        out = self._map_chunk(cfg, [seqs[i] for i in chunk])
+                                    reads=len(chunk)) as sp:
+                        out, counts = self._map_chunk(
+                            cfg, [seqs[i] for i in chunk])
+                        sp.set(**counts)
                     for i, maps in zip(chunk, out):
                         results[i] = maps
             return results
@@ -226,7 +231,7 @@ class TorchMapperEngine:
         # the table reaches this chunk's widest sketch
         minhits = self._minhits_upto(int(s_size.max()))
         with self._phase("lookup"):
-            start, count, total, q_key = lookup(self.tables, q_hash)
+            start, count, total, q_key, dropped = lookup(self.tables, q_hash)
         with self._phase("l1"):
             reg = l1_regions(self.tables, start, count, total, s_size, lens_d,
                              minhits, cfg.hits_max, cfg.cands_max)
@@ -235,7 +240,10 @@ class TorchMapperEngine:
             fallback = s_ovf | reg.overflow
             fallback[reg.read[reg.n_occ > cfg.range_max]] = True
             cand = torch.nonzero(~fallback[reg.read]).flatten()
-        return _Stage1(lens_d, q_key, q_strand, s_size, fallback, cand, reg)
+            counts = torch.stack([total.sum(), dropped.sum(),
+                                  reg.n_regions.max()])
+        return _Stage1(lens_d, q_key, q_strand, s_size, fallback, cand, reg,
+                       counts)
 
     def _slabs(self, s1: _Stage1):
         """L2 slabs of a chunk: candidate indices (into ``s1.cand``) in
@@ -275,7 +283,10 @@ class TorchMapperEngine:
         self._read_events()
         return out
 
-    def _map_chunk(self, cfg: MapConfig, seqs) -> List[List[ReadMapping]]:
+    def _map_chunk(self, cfg: MapConfig, seqs):
+        """The chunk's mappings, and its counters (``hits``,
+        ``hits_over_threshold``, ``cands_max_read``: :attr:`_Stage1.counts`,
+        fetched with the chunk's results)."""
         s1 = self._stage1(cfg, seqs)
         with self._phase("l2"):
             N = int(s1.cand.numel())
@@ -287,9 +298,10 @@ class TorchMapperEngine:
                 self.stats["l2_slabs"] += 1
             self.stats["l2_candidates"] += N
         with self._phase("collect"):
-            out = self._collect(cfg, seqs, s1, res)
+            out, counts = self._collect(cfg, seqs, s1, res)
         self._read_events()
-        return out
+        return out, dict(zip(("hits", "hits_over_threshold", "cands_max_read"),
+                             counts.tolist()))
 
     def _read_events(self) -> None:
         """Add the stream time between each recorded phase's CUDA events to
@@ -307,14 +319,17 @@ class TorchMapperEngine:
 
     def _collect(self, cfg: MapConfig, seqs, s1: _Stage1, res):
         """Acceptance and ReadMappings (``mapper_jax._collect``,
-        ``metamaps_tpu/engine/mapper_jax.py:1041``)."""
+        ``metamaps_tpu/engine/mapper_jax.py:1041``), and the chunk's
+        counters, fetched with the read sizes."""
         reg = s1.regions
         ci = s1.cand
         c_read = reg.read[ci].cpu().numpy()
         c_seq = reg.seq[ci].cpu().numpy()
         res = res.cpu().numpy()
         shared, mean_pos, votes = res[0], res[1], res[5]
-        s_host = s1.s_size.cpu().numpy()
+        B = len(seqs)
+        host = torch.cat([s1.s_size, s1.counts]).cpu().numpy()
+        s_host, counts = host[:B], host[B:]
         fallback = s1.fallback.cpu().numpy()
         lens = np.array([len(s) for s in seqs], np.int64)
 
@@ -342,4 +357,4 @@ class TorchMapperEngine:
         with self._phase("oracle"):
             for r in np.flatnonzero(fallback):
                 out[r] = self._oracle(seqs[r])
-        return out
+        return out, counts

@@ -29,7 +29,11 @@ from util_torch import one_torch_thread  # noqa: F401  (autouse fixture)
 
 ROOT = Path(__file__).resolve().parents[1]
 READERS = ("unify.mapq_ms", "mapfile.parse_ms", "mapfile.write_ms",
-           "engine.reads_per_chunk", "unify.lines_per_mapq_batch")
+           "engine.reads_per_chunk", "unify.lines_per_mapq_batch",
+           "l1.hits_per_read", "lookup.threshold_dropped_pct",
+           "l1.candidates_max")
+#: the engine's counters on each ``engine.chunk`` span
+CHUNK_COUNTERS = ("hits", "hits_over_threshold", "cands_max_read")
 PHASES = ("upload", "sketch", "minhits", "lookup", "l1", "l2", "collect")
 
 
@@ -188,13 +192,17 @@ def test_readers_on_a_hand_built_context(monkeypatch):
              dict(t0=101.0, t2=102.0, reads=250)]
     recs = [
         _record("mapfile.parse", 99.0, 99.5),  # before the window
-        _record("engine.chunk", 99.1, 99.2, bucket=4096, reads=999),
+        _record("engine.chunk", 99.1, 99.2, bucket=4096, reads=999, hits=9,
+                hits_over_threshold=9, cands_max_read=99),
         _record("mapfile.parse", 100.1, 100.103),
         _record("mapfile.parse", 101.1, 101.101),
         _record("mapfile.write", 100.2, 100.202),
-        _record("engine.chunk", 100.15, 100.16, bucket=4096, reads=80),
-        _record("engine.chunk", 100.16, 100.17, bucket=5120, reads=100),
-        _record("engine.chunk", 101.15, 101.16, bucket=4096, reads=120),
+        _record("engine.chunk", 100.15, 100.16, bucket=4096, reads=80,
+                hits=8000, hits_over_threshold=100, cands_max_read=3),
+        _record("engine.chunk", 100.16, 100.17, bucket=5120, reads=100,
+                hits=12000, hits_over_threshold=0, cands_max_read=24),
+        _record("engine.chunk", 101.15, 101.16, bucket=4096, reads=120,
+                hits=10000, hits_over_threshold=300, cands_max_read=7),
         _record("unify", 100.5, 100.9, lines=160, mapq_batches=1, mapq_s=0.03),
         _record("unify", 101.5, 101.9, lines=290, mapq_batches=2, mapq_s=0.05),
         _record("mapfile.write", 102.5, 102.6),  # after the window
@@ -208,6 +216,10 @@ def test_readers_on_a_hand_built_context(monkeypatch):
     assert got["unify.mapq_ms"] == pytest.approx(1e6 * 0.08 / 400)
     assert got["engine.reads_per_chunk"] == pytest.approx(100.0)
     assert got["unify.lines_per_mapq_batch"] == pytest.approx(150.0)
+    assert got["l1.hits_per_read"] == pytest.approx(30000 / 300)
+    assert got["lookup.threshold_dropped_pct"] == pytest.approx(
+        100.0 * 400 / 30400)
+    assert got["l1.candidates_max"] == 24
 
 
 @pytest.mark.parametrize("unify_attrs", [
@@ -227,11 +239,106 @@ def test_lines_per_mapq_batch_reads_none_without_batches(monkeypatch,
         1e6 * unify_attrs["mapq_s"] / 10)
 
 
+@pytest.mark.parametrize("chunk_attrs", [
+    dict(bucket=4096, reads=10),  # a program without the counters
+    dict(bucket=4096, reads=10, hits=0, hits_over_threshold=0,
+         cands_max_read=0),  # no minimizer of a read found
+])
+def test_l1_readers_without_counters_or_hits(monkeypatch, chunk_attrs):
+    files = [dict(t0=100.0, t2=101.0, reads=10)]
+    recs = [_record("engine.chunk", 100.5, 100.6, **chunk_attrs)]
+    monkeypatch.setattr(trace, "spans", lambda: list(recs))
+    monkeypatch.setattr(trace, "reaches", lambda t_ns: True)
+    got = {m: core.load_piece(ROOT, "metrics", m).read(_ctx(files), None)
+           for m in ("l1.hits_per_read", "lookup.threshold_dropped_pct",
+                     "l1.candidates_max")}
+    if "hits" in chunk_attrs:
+        assert got == {"l1.hits_per_read": 0.0,
+                       "lookup.threshold_dropped_pct": None,
+                       "l1.candidates_max": 0}
+    else:
+        assert set(got.values()) == {None}
+
+
+@pytest.fixture(scope="module")
+def near_copies():
+    """A shard of a genome with five near-copies (1 % substitutions), a
+    genome that carries one 16-mer every 1 kb, an unrelated genome, and 16
+    ONT-like reads of the first two over several length buckets. The
+    16-mer is the one of smallest hash in 200 kb of random bases, so every
+    window that holds it picks it: its 400 occurrences are the shard's
+    most, and the frequency threshold (0.001 % of ~190,000 distinct
+    hashes: one) removes them."""
+    from metamaps_tpu_torch.ops.winnow import canonical_hashes_np
+    from metamaps_tpu_torch.sim import synth_db
+
+    rng = np.random.default_rng(20261019)
+    backbone = random_genome(rng, 150_000)
+    host = random_genome(rng, 400_000)
+    pool = random_genome(rng, 200_000)
+    canon, _, valid = canonical_hashes_np(pool, 16)
+    at = int(np.argmin(np.where(valid, canon, np.iinfo(np.int64).max)))
+    for p in range(500, len(host) - 16, 1000):
+        host[p:p + 16] = pool[at:at + 16]
+    genomes = ([backbone] + [synth_db.mutate_sub(rng, backbone, 0.01)
+                             for _ in range(5)]
+               + [host, random_genome(rng, 1_000_000)])
+    shard = SketchShard(contig_names=[f"C{i}" for i in range(len(genomes))],
+                        contig_lengths=[len(g) for g in genomes])
+    shard.finalize([(*winnow_np(g, 16, 16), i) for i, g in enumerate(genomes)])
+    params = Parameters(kmer_size=16, window_size=16, min_read_length=2000,
+                        percentage_identity=80.0,
+                        reference_size=sum(len(g) for g in genomes))
+    reads = [synth_db.ont_read(rng, genomes[g], int(n))
+             for g in (0, 6) for n in rng.integers(2000, 7000, 8)]
+    return shard, params, reads, genomes
+
+
+def test_chunk_counters_match_the_oracles_l1(near_copies):
+    """``engine.chunk``'s ``hits``, ``hits_over_threshold`` and
+    ``cands_max_read`` against the JAX package's serial oracle: its shard's
+    lookup and its ``l1_candidates`` on the same reads."""
+    from metamaps_tpu import stats as jstats
+    from metamaps_tpu.engine import index as jindex
+    from metamaps_tpu.engine import mapper_oracle as joracle
+    from metamaps_tpu.ops.winnow import winnow_np as jwinnow_np
+
+    shard, params, reads, genomes = near_copies
+    jshard = jindex.SketchShard(contig_names=list(shard.contig_names),
+                                contig_lengths=list(shard.contig_lengths))
+    jshard.finalize([(*jwinnow_np(g, 16, 16), i)
+                     for i, g in enumerate(genomes)])
+    eng = TorchMapperEngine(shard, params, device="cpu")
+    t0 = time.perf_counter_ns()
+    eng.map_reads(reads)
+    chunks = [s for s in trace.spans()
+              if s.name == "engine.chunk" and s.t0_ns >= t0]
+    want = {}
+    for seq in reads:
+        q, _, _ = joracle.sketch_read(seq, 16, 16)
+        _, count = jshard.lookup_counts(q)
+        over = count >= jshard.freq_threshold
+        regions = joracle.l1_candidates(
+            jshard, q, len(seq),
+            jstats.estimate_minimum_hits_relaxed(q.size, 16, 80.0))
+        got = want.setdefault(eng._bucket_of(len(seq)), [0, 0, 0])
+        got[0] += int(count[~over].sum())
+        got[1] += int(count[over].sum())
+        got[2] = max(got[2], len(regions))
+    assert eng.stats["oracle_fallbacks"] == 0
+    assert sorted(c.attrs["bucket"] for c in chunks) == sorted(want)
+    for c in chunks:
+        assert [c.attrs[k] for k in CHUNK_COUNTERS] == want[c.attrs["bucket"]]
+    totals = np.sum(list(want.values()), axis=0)
+    assert totals[1] > 0 and max(w[2] for w in want.values()) >= 2
+
+
 def test_readers_give_none_once_the_ring_has_left_the_window():
     t0 = time.perf_counter()
     with trace.span("unify", lines=12, mapq_batches=1, mapq_s=0.01):
         pass
-    with trace.span("engine.chunk", bucket=2048, reads=10):
+    with trace.span("engine.chunk", bucket=2048, reads=10, hits=500,
+                    hits_over_threshold=5, cands_max_read=2):
         pass
     with trace.span("mapfile.parse"):
         pass
