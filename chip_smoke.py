@@ -24,7 +24,11 @@ Phases (each prints its wall seconds; any failure exits non-zero):
    random contract-conforming streams with plane widths below and above 48
    KB of shared memory, and paired (setup-shaped) and mixed streams at
    each kernel's widths (batch sp 128, 1280, 10240; row-block sp 128,
-   1280, 3584; eager s_pad 1024, 2048, 10240); CUDA-event timings;
+   1280, 3584; eager s_pad 1024, 2048, 10240); CUDA-event timings; the
+   read sketch kernel (csrc/sketch.cu) on the first read chunk and at the
+   benchmark's chunk shapes (SKETCH_SHAPES), each against its torch chain,
+   with the peak device memory a call of each adds; every mapping phase
+   after it reports the sketch kernel's launches and fails without one;
 4. main path: synthetic DB (write_synth_db_dir) + ONT-like reads, then the
    port's ``mapDirectly`` (torch engine on CUDA) and ``classify`` (EM rounds
    in float64 on CUDA);
@@ -189,12 +193,13 @@ from metamaps_tpu_torch.engine.index import (
     load_index_manifest,
     reference_memory_model,
 )
-from metamaps_tpu_torch.engine.mapper_torch import TorchMapperEngine
+from metamaps_tpu_torch.engine.mapper_torch import MapConfig, TorchMapperEngine
 from metamaps_tpu_torch.io.fasta import read_sequences
 from metamaps_tpu_torch.io.mappings import (MappingLine, iter_reads_grouped,
                                             parse_mapping_line, read_meta)
 from metamaps_tpu_torch.io.native import winnow_native
 from metamaps_tpu_torch.ops import l1, l2_sweep, l2_sweep_parts
+from metamaps_tpu_torch.ops.sketch import sketch, sketch_ref
 from metamaps_tpu_torch.engine.mapwrap import (map_query_file_against_shard,
                                                unify_query_file)
 from metamaps_tpu_torch.parallel.sharded_engine import (ShardedMapperEngine,
@@ -230,6 +235,13 @@ LONG_READ_PI75 = ["--pi", "75", "--window", "3"]
 WIDE_STREAM_WIDTHS = (28928, 41088)  # just above BATCH_SP_MAX; widest bucket
 WIDE_FORCED_CHUNKS = (256, 2048)  # chunk lengths held against the default
 SETUP_EVENTS = 150_000  # one setup-shaped candidate at sp = BATCH_SP_MAX
+# the sketch kernel beside its torch chain at the benchmark's chunk shapes:
+# zymo.ont_files' largest bucket chunk, zymo.ont_minknow4k's and a 500-read
+# file as one chunk of the 8192 bucket (as a merge of under-filled buckets
+# would make it): (name, reads, bucket, shortest read, longest read)
+SKETCH_SHAPES = (("ont_files_7168", 111, 7168, 6145, 7168),
+                 ("minknow4k_7168", 890, 7168, 6145, 7168),
+                 ("merged_500_8192", 500, 8192, 3000, 7600))
 # --minreads of classify and classifyU: U fits its identity model on a
 # contig with more assigned reads than this (the default, 10000, is a real
 # sample's); 4096 reads put ~110 on each of the 36 genomes
@@ -402,13 +414,15 @@ def compare(label, fn, ref, arrs, *width, timed: dict = None, locate=None,
 
 
 def kernel_entry(name, source, replaces, arrs, width, clock_mhz, err, fn,
-                 ref, sp=None, bound=None, plain_ms=None, **extra):
+                 ref, sp=None, bound=None, plain_ms=None, shape=None,
+                 **extra):
     """One row of the kernels line: the kernel's and the plain version's
     CUDA-event times on ``arrs`` (``plain_ms`` where the caller timed it
     already) and the bound on the same inputs, from the work this data
     needs: ``bound`` (ms, bound_by, counts) where given, else
     ``sweep_bench.sweep_bound`` with ``sp``, and then the row also carries
-    the bound with every event recounted and the events in each mode."""
+    the bound with every event recounted and the events in each mode.
+    ``shape`` defaults to a sweep's [N, E2, width]."""
     ms = sweep_bench.time_ms(lambda: fn(*arrs, *width), arrs[0].device, 5)
     if plain_ms is None:
         plain_ms = sweep_bench.time_ms(lambda: ref(*arrs, *width),
@@ -426,8 +440,79 @@ def kernel_entry(name, source, replaces, arrs, width, clock_mhz, err, fn,
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-                shape=[int(arrs[1].shape[0]), int(arrs[1].shape[1]),
-                       width[0]], **extra)
+                shape=shape or [int(arrs[1].shape[0]), int(arrs[1].shape[1]),
+                                width[0]], **extra)
+
+
+def sketch_chunk(rng, B, bucket, lo, hi):
+    """ONT-like reads of ``lo``-``hi`` random bases (a sixth of them with a
+    stretch of lower case and one of N), right-padded with A as the engine
+    pads them: (reads [B, bucket] uint8, lens [B] int64)."""
+    lens = rng.integers(lo, hi + 1, B)
+    reads = np.full((B, bucket), ord("A"), np.uint8)
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    for i, n in enumerate(lens):
+        reads[i, :n] = rng.choice(bases, size=n)
+        if i % 6 == 0:
+            reads[i, 100:400] += 32
+            reads[i, 900:950] = ord("N")
+    return reads, lens.astype(np.int64)
+
+
+def sketch_bound(lens, L: int, k: int, S: int, clock_mhz: float):
+    """(ms, bound_by, counts) of sketching reads of ``lens`` padded to
+    ``L``: the larger of the bytes (the reads in, S hashes and strands a
+    read out) at sweep_bench's HBM rate and the 32-bit integer operations
+    (two MurmurHash3_x64_128 calls a k-mer position: about 36 a 16-byte
+    block, 44 in the finalisers and around them, the 64-bit multiplies as
+    three 32-bit multiply-adds; the byte words and the window minima left
+    out) at the CUDA cores' INT32 rate, as ``sweep_bench.sweep_bound``."""
+    positions = int(np.maximum(np.asarray(lens) - k + 1, 0).sum())
+    int_ops = 2 * (36 * -(-k // 16) + 44) * positions
+    n_bytes = len(lens) * (L + S * 9)
+    ops_ms = 1e3 * int_ops / (sweep_bench.SMS * sweep_bench.INT32_LANES
+                              * clock_mhz * 1e6)
+    bytes_ms = 1e3 * n_bytes / sweep_bench.HBM_BYTES_PER_S
+    return (max(ops_ms, bytes_ms), "ops" if ops_ms >= bytes_ms else "bytes",
+            dict(positions=positions, int_ops=int_ops, bytes=n_bytes))
+
+
+def peak_mib(fn, dev) -> float:
+    """The device memory one call of ``fn`` adds at its peak, in MiB."""
+    torch.cuda.synchronize(dev)
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    fn()
+    torch.cuda.synchronize(dev)
+    return (torch.cuda.max_memory_allocated(dev) - base) / 2**20
+
+
+def sketch_entry(label, reads, lens, k, w, S, a, dev, clock_mhz):
+    """The sketch kernel against its torch chain on the same card tensors,
+    every output equal bit for bit (else the smoke fails), then its kernels
+    line row: times, bound and the peak memory a call of each adds."""
+    arrs = [torch.from_numpy(reads).to(dev), torch.from_numpy(lens).to(dev)]
+    before = sketch.launches
+    got = sketch(*arrs, k, w, S, a)
+    want = sketch_ref(*arrs, k, w, S, a)
+    torch.cuda.synchronize(dev)
+    if sketch.launches != before + 1:
+        raise AssertionError(f"the sketch kernel did not run on {label}")
+    for name, g, w_ in zip(("q_hash", "q_strand", "size", "overflow"), got,
+                           want):
+        if g.dtype != w_.dtype or not torch.equal(g, w_):
+            raise AssertionError(f"sketch differs from its torch chain in "
+                                 f"{name} on {label}")
+    B, L = reads.shape
+    log(f"sketch vs torch chain, {label}: B={B} L={L} S={S} k={k} w={w}: "
+        "equal")
+    return kernel_entry(
+        "sketch", "metamaps_tpu_torch/csrc/sketch.cu",
+        "metamaps_tpu/ops/batch_map.py:909 (XLA)", arrs, (k, w, S, a),
+        clock_mhz, 0, sketch, sketch_ref,
+        bound=sketch_bound(lens, L, k, S, clock_mhz), shape=[B, L, S],
+        label=label, peak_mib=peak_mib(lambda: sketch(*arrs, k, w, S, a), dev),
+        plain_peak_mib=peak_mib(lambda: sketch_ref(*arrs, k, w, S, a), dev))
 
 
 def format_maps(maps, shard, read_id: str) -> list:
@@ -510,6 +595,7 @@ def map_against_index(args, times: dict, db: str, fq: str, reads, shard,
             raise AssertionError("mapAgainstIndex failed")
         torch.cuda.synchronize()
     mai_launches = l2_sweep.l2_event_sweep_batch.launches
+    mai_sketch = sketch.launches
     gc.collect()
     mem_after = torch.cuda.memory_allocated(dev)
 
@@ -526,7 +612,8 @@ def map_against_index(args, times: dict, db: str, fq: str, reads, shard,
             oracle_fallbacks=mai_stats["oracle_fallbacks"],
             reads_mappable_over_shards=mai_stats["reads_mappable"],
             l2_candidates=mai_stats["l2_candidates"],
-            sweep_launches=mai_launches, device_bytes_before=mem_before,
+            sweep_launches=mai_launches, sketch_launches=mai_sketch,
+            device_bytes_before=mem_before,
             device_bytes_after=mem_after, meta=mai_meta)
         log("mapAgainstIndex " + json.dumps(mai))
         if mai_launches <= 0:
@@ -1721,7 +1808,7 @@ def main(argv=None) -> int:
     times: dict = {}
     counters = (l2_sweep.l2_event_sweep_batch, l2_sweep.l2_event_sweep_rb,
                 l2_sweep.l2_event_sweep, l2_sweep_parts.l2_sweep_parts,
-                l2_sweep.l2_event_sweep_wide)
+                l2_sweep.l2_event_sweep_wide, sketch)
 
     # ---- 1. environment --------------------------------------------------
     with Phase("environment", times):
@@ -1874,6 +1961,25 @@ def main(argv=None) -> int:
             ms_by_slab=slab_ms[batch.__name__],
             ms_all_slabs=sum(slab_ms[batch.__name__]),
             modes_by_slab=slab_modes)
+        # the sketch kernel on the same chunk as the engine uploads it, then
+        # at the benchmark's chunk shapes
+        cfg0 = engine._config_for(b0)
+        first = chunk[: engine.CHUNK]
+        reads0 = np.full((len(first), cfg0.read_len_max), ord("A"), np.uint8)
+        for r, seq in enumerate(first):
+            reads0[r, :len(seq)] = seq
+        sketch_row = sketch_entry(
+            "the main path's first chunk", reads0,
+            np.array([len(seq) for seq in first], np.int64), cfg0.kmer_size,
+            cfg0.window_size, cfg0.sketch_max, cfg0.alphabet_size, dev,
+            clock_mhz)
+        sketch_rng = np.random.default_rng(args.seed + 18)
+        sketch_row["by_shape"] = [
+            sketch_entry(name, *sketch_chunk(sketch_rng, B, bucket, lo, hi),
+                         16, 16, MapConfig.for_read_len(bucket, 16,
+                                                        16).sketch_max,
+                         4, dev, clock_mhz)
+            for name, B, bucket, lo, hi in SKETCH_SHAPES]
 
     # ---- 4. main path -----------------------------------------------------
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1889,6 +1995,7 @@ def main(argv=None) -> int:
         if cli_main(["classify", "--DB", db, "--mappings", out]) != 0:
             raise AssertionError("classify failed")
     launches = l2_sweep.l2_event_sweep_batch.launches
+    sketch_launches = sketch.launches
     peak = torch.cuda.max_memory_allocated(dev)
 
     # ---- 5. checks --------------------------------------------------------
@@ -2103,6 +2210,13 @@ def main(argv=None) -> int:
                     launches_long_read=wide_row["launches"],
                     launches_long_read_pi75=pi75[wide_name],
                     launches_mesh_cli=cli_wide, launches_experiments=acc_wide)
+    sketch_by_phase = dict(
+        mapDirectly=sketch_launches, mapAgainstIndex=mai["sketch_launches"],
+        long_read=long_info["launches"][sketch.__name__],
+        long_read_pi75=pi75[sketch.__name__],
+        mesh=mesh["launches"][sketch.__name__],
+        mesh_cli=mesh["cli_launches"][sketch.__name__],
+        experiments=acc["launches"][sketch.__name__])
 
     # ---- 12. the host tools on the card's outputs --------------------------
     tools = tools_phase(args, times, card, db, out)
@@ -2110,6 +2224,14 @@ def main(argv=None) -> int:
     # ---- 13. the 1 Gbp run ------------------------------------------------
     scale, scale_batch, scale_err, scale_kernel, union = at_scale_phase(
         args, times, card, counters, dev, clock_mhz)
+    sketch_by_phase["at_scale"] = scale["launches"][sketch.__name__]
+    log(f"sketch kernel launches by phase: {json.dumps(sketch_by_phase)}")
+    for phase in ("mapDirectly", "mapAgainstIndex", "mesh", "at_scale"):
+        if sketch_by_phase[phase] <= 0:
+            raise AssertionError(f"the sketch kernel never ran in {phase}")
+    sketch_row.update(launches=sum(sketch_by_phase.values()),
+                      **{f"launches_{k}": v
+                         for k, v in sketch_by_phase.items()})
     batch_row.update(launches=batch_row["launches"] + scale_batch,
                      launches_at_scale=scale_batch,
                      max_abs_err=max(batch_row["max_abs_err"], scale_err),
@@ -2146,7 +2268,8 @@ def main(argv=None) -> int:
     log("summary " + json.dumps(summary))
     shutil.rmtree(args.workdir, ignore_errors=True)
     print(card)
-    print(json.dumps({"kernels": [batch_row] + variant_rows + [wide_row]}))
+    print(json.dumps({"kernels": [batch_row] + variant_rows
+                      + [wide_row, sketch_row]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

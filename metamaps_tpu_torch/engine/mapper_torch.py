@@ -89,6 +89,7 @@ class _Stage1:
     # [3]: the chunk's L1 hits under the frequency threshold, the index
     # occurrences the threshold removed, the most regions of one read
     counts: torch.Tensor
+    sketch_kernel: int  # 1 where csrc/sketch.cu sketched the chunk, else 0
 
 
 class TorchMapperEngine:
@@ -225,6 +226,7 @@ class TorchMapperEngine:
             reads_d = torch.from_numpy(reads).to(self.device)
             lens_d = torch.from_numpy(lens).to(self.device)
         k, w = cfg.kmer_size, cfg.window_size
+        launches = sketch.launches
         with self._phase("sketch"):
             q_hash, q_strand, s_size, s_ovf = sketch(
                 reads_d, lens_d, k, w, cfg.sketch_max, cfg.alphabet_size)
@@ -243,7 +245,7 @@ class TorchMapperEngine:
             counts = torch.stack([total.sum(), dropped.sum(),
                                   reg.n_regions.max()])
         return _Stage1(lens_d, q_key, q_strand, s_size, fallback, cand, reg,
-                       counts)
+                       counts, int(sketch.launches > launches))
 
     def _slabs(self, s1: _Stage1):
         """L2 slabs of a chunk: candidate indices (into ``s1.cand``) in
@@ -286,7 +288,7 @@ class TorchMapperEngine:
     def _map_chunk(self, cfg: MapConfig, seqs):
         """The chunk's mappings, and its counters (``hits``,
         ``hits_over_threshold``, ``cands_max_read``: :attr:`_Stage1.counts`,
-        fetched with the chunk's results)."""
+        fetched with the chunk's results; ``sketch_kernel``)."""
         s1 = self._stage1(cfg, seqs)
         with self._phase("l2"):
             N = int(s1.cand.numel())
@@ -301,7 +303,7 @@ class TorchMapperEngine:
             out, counts = self._collect(cfg, seqs, s1, res)
         self._read_events()
         return out, dict(zip(("hits", "hits_over_threshold", "cands_max_read"),
-                             counts.tolist()))
+                             counts.tolist()), sketch_kernel=s1.sketch_kernel)
 
     def _read_events(self) -> None:
         """Add the stream time between each recorded phase's CUDA events to

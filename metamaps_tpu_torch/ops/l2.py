@@ -46,12 +46,18 @@ def l2_finish(st: L2Setup, sweep_out, q_key, q_strand, sketch_size,
     # strand is its last occurrence in the range (no same-hash successor
     # before oe); the union rank of query slot j is j + #(range hashes
     # below it) - #(common hashes below it)
+    # (dead [N, R] temporaries are freed at once, as in l2_setup)
     r_abs = st.beg0[:, None] + torch.arange(R, device=dev)[None, :]
     active = (r_abs >= ob[:, None]) & (r_abs < oe[:, None]) & has_best[:, None]
+    del r_abs
     is_last = active & ((st.occ_next < 0) | (st.occ_next >= oe[:, None]))
+    del active
     v = torch.where(is_last, 2 * st.occ_hrow + 1, I32_MAX)
+    del is_last
     v_sorted, order = torch.sort(v, dim=1)
+    del v
     strand_sorted = torch.gather(st.occ_strand, 1, order)
+    del order
     qk = q_key[:, :sketch_cols].to(torch.int64).contiguous()
     pos = torch.searchsorted(v_sorted, qk)
     posc = pos.clamp(max=R - 1)

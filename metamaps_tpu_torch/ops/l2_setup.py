@@ -75,26 +75,32 @@ def l2_setup(tables: DeviceTables, q_key, sketch_size, read_lens, c_seq,
         wpos = hrow = strand = nxt_tab = prv_tab = torch.zeros(
             1, dtype=torch.int64, device=dev)
     else:
-        wpos = tables.wpos.to(torch.int64)
-        hrow, strand = tables.hrow, tables.strand
+        wpos, hrow, strand = tables.wpos, tables.hrow, tables.strand
         prv_tab, nxt_tab = tables.prev_same, tables.next_same
 
-    occ_w_raw = wpos[gi]
+    def at(tab, i):  # entries of a table, widened after the gather
+        return tab[i].to(torch.int64)
+
+    # [N, R] temporaries are freed (del) as soon as they are dead: at a
+    # chunk of ~900 candidates they set the mapping path's peak memory
+    occ_w_raw = at(wpos, gi)
     occ_w = torch.where(occ_v, occ_w_raw, I32_MAX)
-    occ_hrow = hrow[gi].to(torch.int64)
-    occ_strand = strand[gi].to(torch.int64)
-    prv = prv_tab[gi].to(torch.int64)
-    nxt = nxt_tab[gi].to(torch.int64)
+    occ_hrow = at(hrow, gi)
+    occ_strand = at(strand, gi)
+    prv = at(prv_tab, gi)
+    nxt = at(nxt_tab, gi)
+    del gi
 
     empty = ~occ_v[:, 0]
     p0 = torch.where(empty, 0, occ_w[:, 0])
-    w_last = wpos[(last_end - 1).clamp(min=0, max=max(M - 1, 0))]
+    w_last = at(wpos, (last_end - 1).clamp(min=0, max=max(M - 1, 0)))
     p_max = torch.where(empty, -1, w_last - L)
 
     next_w = torch.cat(
         [occ_w[:, 1:], torch.full((occ_w.shape[0], 1), I32_MAX,
                                   dtype=torch.int64, device=dev)], dim=1)
     a_t = occ_w_raw - L[:, None] + 1
+    del occ_w_raw
 
     # query rank and membership: qkey rows ascend (padding I32_MAX last)
     v_occ = 2 * occ_hrow + 1
@@ -102,38 +108,51 @@ def l2_setup(tables: DeviceTables, q_key, sketch_size, read_lens, c_seq,
     qrank = torch.searchsorted(qk, v_occ)
     S = qk.shape[1]
     in_q = (qrank < S) & (torch.gather(qk, 1, qrank.clamp(max=S - 1)) == v_occ)
+    del v_occ
     base = torch.where(in_q, 2, 1)
+    del in_q
 
     # X: an overlapping same-hash predecessor p inside the window
     # (p >= beg0, a_t <= b_p = wpos[p+1] - 1) cancels the start
     pc = prv.clamp(min=0)
     chain_prev = (
         (prv >= beg0[:, None])
-        & (a_t <= wpos[(pc + 1).clamp(max=max(M - 1, 0))] - 1)
+        & (a_t <= at(wpos, (pc + 1).clamp(max=max(M - 1, 0))) - 1)
     )
+    del pc, prv
     # Y: an overlapping same-hash successor r inside the window
     # (r < last_end, a_r <= b_t = next_w - 1) takes over the end
     nc = nxt.clamp(min=0)
     chain_next = (
         (nxt >= 0) & (nxt < last_end[:, None])
-        & (wpos[nc] - L[:, None] + 1 <= next_w - 1)
+        & (at(wpos, nc) - L[:, None] + 1 <= next_w - 1)
     )
-    x_key = torch.where(occ_v, a_t, I32_MAX)
-    x_sign = torch.where(occ_v & ~chain_prev, base, 0)
-    y_sign = torch.where(occ_v & ~chain_next, -base, 0)
+    del nc
+    i32 = torch.int32
+    # every key, sign and rank fits int32: the [N, 2R] arrays are built in
+    # it (a stable sort of the same values gives the same order)
+    x_key = torch.where(occ_v, a_t, I32_MAX).to(i32)
+    del a_t
+    x_sign = torch.where(occ_v & ~chain_prev, base, 0).to(i32)
+    y_sign = torch.where(occ_v & ~chain_next, -base, 0).to(i32)
+    del base, chain_prev, chain_next
 
-    keys = torch.cat([x_key, next_w], dim=1)
+    keys = torch.cat([x_key, next_w.to(i32)], dim=1)
+    del x_key, next_w
     rows, order = torch.sort(keys, dim=1, stable=True)
+    del keys
     signinq = torch.gather(torch.cat([x_sign, y_sign], dim=1), 1, order)
+    del x_sign, y_sign
+    qrank = qrank.clamp(max=sketch_cols).to(i32)
     qr = torch.gather(torch.cat([qrank, qrank], dim=1), 1, order)
+    del qrank, order
     n_ev = (rows != I32_MAX).sum(dim=1)
     meta = torch.stack([sketch_size.to(torch.int64), p0, p_max, n_ev], dim=1)
-    i32 = torch.int32
     return L2Setup(
         meta=meta.to(i32).contiguous(),
-        qrank=qr.clamp(max=sketch_cols).to(i32).contiguous(),
-        signinq=signinq.to(i32).contiguous(),
-        rows=rows.to(i32).contiguous(),
+        qrank=qr.contiguous(),
+        signinq=signinq.contiguous(),
+        rows=rows.contiguous(),
         valid=valid, overflow=overflow, beg0=beg0, L=L, occ_w=occ_w,
         occ_hrow=occ_hrow, occ_strand=occ_strand, occ_next=nxt,
     )

@@ -23,8 +23,9 @@ sources under
 
 Each wrapper takes the plain version, :func:`l2_event_sweep_ref`, only for
 CPU tensors; for CUDA tensors it launches its kernel or raises, and counts
-the launch. The sources (with ``csrc/l2_sweep_parts.cu``, the ablation) are
-compiled at first use into one shared library with plain C entry points,
+the launch. The sources (with ``csrc/l2_sweep_parts.cu``, the ablation, and
+``csrc/sketch.cu``, the read sketch of ``ops/sketch.py``) are compiled at
+first use into one shared library with plain C entry points,
 loaded with ctypes, under ``build/metamaps_tpu_torch/`` beside the package:
 one ``nvcc -c`` for ``sm_90a`` per source, all started together, then one
 link (:func:`load_library`).
@@ -47,7 +48,7 @@ I32_MIN = -(2**31)
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "metamaps_tpu_torch"
 SOURCES = ("l2_sweep", "l2_sweep_wide", "l2_sweep_rb", "l2_sweep_eager",
-           "l2_sweep_parts")
+           "l2_sweep_parts", "sketch")
 HEADERS = ("l2_sweep_common.cuh",)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC"]
@@ -71,6 +72,9 @@ LAUNCH_ARGS = {
     "l2_sweep_eager": [_P] * 5 + [_I] * 3 + [_P],
     # meta..out, fold, planes, n, e2, sp, splits, mode bits, stream
     "l2_sweep_parts": [_P] * 7 + [_I] * 5 + [_P],
+    # reads, lens, B, L, k, w, S, alpha4, kcap, rb, ws, gring..ovf, stream
+    # (ops/sketch.py)
+    "sketch": [_P] * 2 + [_I] * 8 + [_P] * 7,
 }
 #: the wide kernel's workspace (``ws`` in csrc/l2_sweep_wide.cu) at most,
 #: in bytes, beyond one chunk's planes
@@ -98,7 +102,7 @@ def _nvcc() -> str:
     for c in cand:
         if c and os.path.exists(c):
             return c
-    raise RuntimeError("nvcc not found: the L2 sweep kernels cannot be built")
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
 def _run_all(cmds) -> str:

@@ -31,7 +31,7 @@ ROOT = Path(__file__).resolve().parents[1]
 READERS = ("unify.mapq_ms", "mapfile.parse_ms", "mapfile.write_ms",
            "engine.reads_per_chunk", "unify.lines_per_mapq_batch",
            "l1.hits_per_read", "lookup.threshold_dropped_pct",
-           "l1.candidates_max")
+           "l1.candidates_max", "sketch.kernel_chunk_pct")
 #: the engine's counters on each ``engine.chunk`` span
 CHUNK_COUNTERS = ("hits", "hits_over_threshold", "cands_max_read")
 PHASES = ("upload", "sketch", "minhits", "lookup", "l1", "l2", "collect")
@@ -107,6 +107,7 @@ def test_spans_of_a_map_and_unify_nest(mini):
     assert sorted(c.attrs["bucket"] for c in chunks) == [2048, 4096]
     assert sum(c.attrs["reads"] for c in chunks) == 13
     assert {by_id[c.parent].name for c in chunks} == {"engine.map_reads"}
+    assert [c.attrs["sketch_kernel"] for c in chunks] == [0, 0]  # the CPU
     for c in chunks:
         names = [s.name for s in spans if s.parent == c.id]
         assert [n for n in names if n != "engine.minhits"] == [
@@ -193,16 +194,19 @@ def test_readers_on_a_hand_built_context(monkeypatch):
     recs = [
         _record("mapfile.parse", 99.0, 99.5),  # before the window
         _record("engine.chunk", 99.1, 99.2, bucket=4096, reads=999, hits=9,
-                hits_over_threshold=9, cands_max_read=99),
+                hits_over_threshold=9, cands_max_read=99, sketch_kernel=0),
         _record("mapfile.parse", 100.1, 100.103),
         _record("mapfile.parse", 101.1, 101.101),
         _record("mapfile.write", 100.2, 100.202),
         _record("engine.chunk", 100.15, 100.16, bucket=4096, reads=80,
-                hits=8000, hits_over_threshold=100, cands_max_read=3),
+                hits=8000, hits_over_threshold=100, cands_max_read=3,
+                sketch_kernel=1),
         _record("engine.chunk", 100.16, 100.17, bucket=5120, reads=100,
-                hits=12000, hits_over_threshold=0, cands_max_read=24),
+                hits=12000, hits_over_threshold=0, cands_max_read=24,
+                sketch_kernel=0),
         _record("engine.chunk", 101.15, 101.16, bucket=4096, reads=120,
-                hits=10000, hits_over_threshold=300, cands_max_read=7),
+                hits=10000, hits_over_threshold=300, cands_max_read=7,
+                sketch_kernel=1),
         _record("unify", 100.5, 100.9, lines=160, mapq_batches=1, mapq_s=0.03),
         _record("unify", 101.5, 101.9, lines=290, mapq_batches=2, mapq_s=0.05),
         _record("mapfile.write", 102.5, 102.6),  # after the window
@@ -220,6 +224,7 @@ def test_readers_on_a_hand_built_context(monkeypatch):
     assert got["lookup.threshold_dropped_pct"] == pytest.approx(
         100.0 * 400 / 30400)
     assert got["l1.candidates_max"] == 24
+    assert got["sketch.kernel_chunk_pct"] == pytest.approx(100.0 * 2 / 3)
 
 
 @pytest.mark.parametrize("unify_attrs", [
@@ -258,6 +263,27 @@ def test_l1_readers_without_counters_or_hits(monkeypatch, chunk_attrs):
                        "l1.candidates_max": 0}
     else:
         assert set(got.values()) == {None}
+
+
+@pytest.mark.parametrize("kernel", [None, (1, None), (1, 1, 1), (0, 0)],
+                         ids=["parent", "one_without", "all", "none"])
+def test_sketch_kernel_reader(monkeypatch, kernel):
+    """None where a chunk span lacks ``sketch_kernel`` (a program without
+    the counter), else the share of chunks with 1."""
+    files = [dict(t0=100.0, t2=101.0, reads=30)]
+    marks = kernel or (None,)
+    recs = [_record("engine.chunk", 100.1 + 0.1 * i, 100.15 + 0.1 * i,
+                    bucket=4096, reads=10,
+                    **({} if m is None else {"sketch_kernel": m}))
+            for i, m in enumerate(marks)]
+    monkeypatch.setattr(trace, "spans", lambda: list(recs))
+    monkeypatch.setattr(trace, "reaches", lambda t_ns: True)
+    got = core.load_piece(ROOT, "metrics", "sketch.kernel_chunk_pct").read(
+        _ctx(files), None)
+    if None in marks:
+        assert got is None
+    else:
+        assert got == pytest.approx(100.0 * sum(marks) / len(marks))
 
 
 @pytest.fixture(scope="module")
@@ -338,7 +364,7 @@ def test_readers_give_none_once_the_ring_has_left_the_window():
     with trace.span("unify", lines=12, mapq_batches=1, mapq_s=0.01):
         pass
     with trace.span("engine.chunk", bucket=2048, reads=10, hits=500,
-                    hits_over_threshold=5, cands_max_read=2):
+                    hits_over_threshold=5, cands_max_read=2, sketch_kernel=1):
         pass
     with trace.span("mapfile.parse"):
         pass
